@@ -1,0 +1,413 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (mitsuba_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass or the script exits non-zero:
+  1. build csrc/trace.cu with nvcc for sm_90a and print ptxas's register
+     and spill report;
+  2. hold the trace kernel against its plain PyTorch version on the Cornell
+     box: 256² primary rays and one bounce of NEE shadow rays, closest-hit
+     and any-hit;
+  3. the same on the Cornell box plus a 261k-triangle sphere (a 12.6 MB
+     cluster table, the regime of the TPU package's 2-D grid kernel);
+  4. the main path at full size: Cornell 256², 8 bounces, 64 spp through
+     render_fn (render() plus the ray count) with every kernel launch
+     counted, then the kernel's own time at the main path's shapes and a
+     profile of one sample pass;
+  5. the whole render through the kernel against the whole render through
+     the plain intersector (256², 8 spp, same seed).
+
+The last two lines are the card's name and power limit, as nvidia-smi
+reports them, and {"ok": true, "device": {...}}; the line before them lists
+every ported kernel with its launches, error and times. Exits non-zero
+without a CUDA device, and without the package beside it.
+"""
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+DEV = "cuda"
+CORNELL_RES = 256
+SPP = 64
+MAX_DEPTH = 8
+LARGE_SPHERE = (256, 512)   # 261,120 triangles
+LARGE_RES = 128             # 16384 rays
+TABLE_SWITCH_MB = 8         # pallas_trace.py:416-417 2-D grid switch
+# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
+PEAK_FP32 = 67e12           # FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12        # HBM bytes/s
+# fp32 operations of one ray-triangle test in csrc/trace.cu, by how far it
+# gets: d'_z (3 mul + 2 add) for every test; o'_z (3 mul + 3 add) and the
+# division where |d'_z| passes; o'_x, o'_y (2 x 6), d'_x, d'_y (2 x 5),
+# u and v (2 x (mul + add)) and 1-u-v (2 sub) only where t is in range
+OPS_DZ, OPS_T, OPS_UV = 5, 7, 28
+TRIS_PER_CLUSTER = 64
+WOOP_TRI_BYTES = 3 * 16     # three float4 rows per triangle
+AABB_ROW_BYTES = 32
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def time_ms(fn, reps, warmup=3):
+    """Mean device time of fn() over `reps` runs, by CUDA events. A sleep
+    kernel (~25 ms) queued first keeps the card busy while the host
+    enqueues the runs, so host launch overhead does not enter the time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def camera_rays(cam, res, seed=0):
+    """One jittered primary ray per pixel of a res² film."""
+    from mitsuba_tpu_torch.core import rng
+    px = torch.arange(res * res, device=DEV)
+    jit = rng.sample_2d(seed, px, 0, 0)
+    pos = torch.stack([(px % res).float() + jit[:, 0],
+                       (px // res).float() + jit[:, 1]], -1)
+    return cam.sample_ray(pos)
+
+
+def shadow_rays(scene, o, d, seed=0):
+    """One NEE shadow ray from each primary hit toward the area light."""
+    from mitsuba_tpu_torch.accel import dense
+    from mitsuba_tpu_torch.core import rng
+    from mitsuba_tpu_torch.core.math import SHADOW_EPSILON
+    from mitsuba_tpu_torch.emitter.emitter import sample_direct
+    from mitsuba_tpu_torch.integrator.common import (offset_ray_origin,
+                                                     ray_mint)
+    n = o.shape[0]
+    its = dense.ray_intersect(scene, o, d, ray_mint(o),
+                              torch.full((n,), 1e30, device=DEV))
+    px = torch.arange(n, device=DEV)
+    ds = sample_direct(scene, its.p, rng.sample_1d(seed, px, 4),
+                       rng.sample_2d(seed, px, 5))
+    so = offset_ray_origin(its.p, its.ng, ds.d)
+    live = its.valid & (ds.pdf > 0)
+    return (so, ds.d, ray_mint(so), ds.dist * (1.0 - SHADOW_EPSILON),
+            live)
+
+
+def compare(label, scene, o, d, mint, maxt, live, errs):
+    """Kernel against plain version, closest-hit and any-hit, on the same
+    rays. Limits: hit equal on ≥ 99.99% of lanes; where both hit, the same
+    triangle, t rel ≤ 1e-5, u and v abs ≤ 1e-5."""
+    from mitsuba_tpu_torch.accel import dense, trace
+    ki = trace.intersect(scene, o, d, mint, maxt, live)
+    pi = dense.ray_intersect(scene, o, d, mint, maxt, live)
+    agree = (ki.valid == pi.valid).float().mean().item()
+    both = ki.valid & pi.valid
+    n_both = int(both.sum())
+    tri_ok = bool((ki.tri_id[both] == pi.tri_id[both]).all())
+    t_rel = ((ki.t[both] - pi.t[both]).abs()
+             / pi.t[both].abs().clamp(min=1e-30)).max().item() \
+        if n_both else 0.0
+    uv_abs = (ki.uv[both] - pi.uv[both]).abs().max().item() \
+        if n_both else 0.0
+    # uv is barycentric-interpolated from (u, v) by the same ops on both
+    # sides, so it carries the kernel's u/v error unchanged
+    ko = trace.occluded(scene, o, d, mint, maxt, live)
+    po = dense.ray_test(scene, o, d, mint, maxt, live)
+    agree_any = (ko == po).float().mean().item()
+    torch.cuda.synchronize()
+    print(f"[{label}] rays {o.shape[0]}  closest: hit agree {agree:.6f}, "
+          f"shared hits {n_both}, same tri {tri_ok}, max t rel {t_rel:.3g}, "
+          f"max uv abs {uv_abs:.3g}  any: hit agree {agree_any:.6f}, "
+          f"occluded {ko.float().mean().item():.4f}", flush=True)
+    check(agree >= 0.9999, f"{label}: closest-hit agreement {agree}")
+    check(tri_ok, f"{label}: triangle ids differ on shared hits")
+    check(t_rel <= 1e-5, f"{label}: t rel error {t_rel}")
+    check(uv_abs <= 1e-5, f"{label}: u/v abs error {uv_abs}")
+    check(agree_any >= 0.9999, f"{label}: any-hit agreement {agree_any}")
+    t_abs = (ki.t[both] - pi.t[both]).abs().max().item() if n_both else 0.0
+    errs["trace_closest"] = max(errs["trace_closest"], t_abs, uv_abs)
+    errs["trace_any"] = max(errs["trace_any"],
+                            (ko != po).float().max().item())
+
+
+def needed_work(scene, o, d, mint, maxt, live, any_hit):
+    """The triangle tests, fp32 operations and table bytes that these rays
+    need, counted from this run's data: for each live ray, the real
+    (non-padding) triangles of the clusters whose boxes it crosses before
+    its closest hit (or its maxt), each charged only the stages it reaches
+    (OPS_DZ, OPS_T, OPS_UV). In any-hit mode an occluded ray needs only the
+    one test that finds its occluder. Slab tests are not counted, and a
+    table row is counted once however many rays read it."""
+    from mitsuba_tpu_torch.accel import dense
+    n, c = o.shape[0], scene.woop_clusters.shape[0]
+    tri_real = (scene.tri_area[:c * TRIS_PER_CLUSTER] > 0).view(
+        c, TRIS_PER_CLUSTER)
+    box = scene.cluster_aabb
+    real = tri_real.any(-1) & (box[:, 0:3] <= box[:, 3:6]).all(-1)
+    if live is None:
+        live = torch.ones(n, dtype=torch.bool, device=o.device)
+    hit = dense.ray_intersect(scene, o, d, mint, maxt, live)
+    need_tri = torch.zeros_like(tri_real)
+    tests = ops = 0
+    if any_hit:
+        # an occluded ray needs the test of its occluder and nothing else
+        occ = hit.valid & live
+        tests, ops = int(occ.sum()), int(occ.sum()) * (OPS_DZ + OPS_T + OPS_UV)
+        need_tri.view(-1)[hit.tri_id[occ].long()] = True
+        live, cap = live & ~occ, maxt
+    else:
+        cap = torch.where(hit.valid, hit.t, maxt)
+    inv = torch.where(d.abs() < 1e-12, torch.where(d >= 0, 1e30, -1e30),
+                      1.0 / d)
+    entered = torch.zeros(c, dtype=torch.bool, device=o.device)
+    for r0 in range(0, n, 4096):
+        rs = slice(r0, r0 + 4096)
+        for c0 in range(0, c, 512):
+            b = box[c0:c0 + 512]
+            t0 = (b[None, :, 0:3] - o[rs, None]) * inv[rs, None]
+            t1 = (b[None, :, 3:6] - o[rs, None]) * inv[rs, None]
+            near = torch.maximum(torch.minimum(t0, t1).amax(-1),
+                                 mint[rs, None])
+            far = torch.minimum(torch.maximum(t0, t1).amin(-1),
+                                cap[rs, None])
+            enter = ((near <= far) & real[None, c0:c0 + 512]
+                     & live[rs, None])
+            ri, ci = enter.nonzero(as_tuple=True)
+            ri, ci = ri + r0, ci + c0
+            entered[ci] = True
+            for p0 in range(0, ri.shape[0], 32768):
+                pr, pc = ri[p0:p0 + 32768], ci[p0:p0 + 32768]
+                wz = scene.woop_clusters[pc, 2 * TRIS_PER_CLUSTER:]
+                dz = (wz[..., 0:3] * d[pr, None]).sum(-1)
+                oz = (wz[..., 0:3] * o[pr, None]).sum(-1) + wz[..., 3]
+                t = -oz / dz
+                test = tri_real[pc]
+                dz_ok = test & (dz.abs() >= 1e-12)
+                t_ok = (dz_ok & (t > mint[pr, None]) & (t < maxt[pr, None])
+                        & (t <= cap[pr, None]))
+                n_test, n_dz, n_t = (int(x.sum()) for x in (test, dz_ok, t_ok))
+                tests += n_test
+                ops += OPS_DZ * n_test + OPS_T * n_dz + OPS_UV * n_t
+    need_tri |= tri_real & entered[:, None]
+    table_bytes = (int(need_tri.sum()) * WOOP_TRI_BYTES
+                   + int(need_tri.any(-1).sum()) * AABB_ROW_BYTES)
+    return tests, ops, table_bytes
+
+
+def measure(label, any_hit, scene, rays, plain_reps, card):
+    """Time one kernel launch and its plain version on these rays, and
+    work out the card's bound for the same work."""
+    from mitsuba_tpu_torch.accel import dense, trace
+    o, d, mint, maxt, live = rays
+    ms = time_ms(lambda: trace.trace(scene, o, d, mint, maxt, live,
+                                     any_hit), 100)
+    plain_ms = time_ms(lambda: dense.intersect_soup(
+        o, d, scene.woop_o, mint, maxt, live), plain_reps, warmup=1)
+    n, c = o.shape[0], scene.woop_clusters.shape[0]
+    tests, ops, table_bytes = needed_work(scene, o, d, mint, maxt, live,
+                                          any_hit)
+    n_bytes = (n * (24 + 8 + (0 if live is None else 1))   # rays in
+               + n * (1 if any_hit else 17)                # hits out
+               + table_bytes)                              # rows needed
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_FP32 * 1e3
+    out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"[time] {label}: {ms * 1e3:.2f} us/launch (plain "
+          f"{plain_ms * 1e3:.1f} us, bound {out['bound_ms'] * 1e3:.4f} us "
+          f"by {out['bound_by']}; {n} rays, {c} clusters, {tests} triangle "
+          f"tests, {ops} fp32 ops, {n_bytes} bytes) ({card})", flush=True)
+    return out
+
+
+def profile_pass(scene, cam, film, integrator, card, reps=4):
+    """The device's busy share of one 1-spp pass of the main path: device
+    time from torch.profiler over one pass, divided by the mean wall of
+    `reps` passes run without the profiler (which slows the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mitsuba_tpu_torch.render import render_fn
+    run = lambda: render_fn(scene, cam, film, integrator, spp=1, seed=1,
+                            device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    # device-side events only (the CPU ops that launched them carry the
+    # same device time and would count it twice)
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    if not rows:
+        print("[profile] the profiler saw no device time: busy share not "
+              "measured", flush=True)
+        return
+    busy_us = sum(r[0] for r in rows)
+    print(f"[profile] 1 spp pass: wall {wall * 1e3:.1f} ms (mean of {reps}, "
+          f"no profiler; {prof_wall * 1e3:.1f} ms under it), device busy "
+          f"{busy_us / 1e3:.1f} ms ({busy_us / 1e4 / wall:.1f}% of the "
+          f"unprofiled wall), {sum(r[1] for r in rows)} device ops ({card})",
+          flush=True)
+    for us, count, key in rows[:8]:
+        print(f"    {us / 1e3:8.2f} ms  {count:6d}x  {key[:90]}")
+
+
+def image_rule(img, ref, label):
+    """tests/test_render.py's rule: < 1% of values off by rel > 5e-2 and
+    the means within rel 5e-3."""
+    rel = (img - ref).abs() / ref.clamp(min=1e-3)
+    frac_bad = (rel > 5e-2).float().mean().item()
+    mean_rel = abs(img.mean().item() - ref.mean().item()) / ref.mean().item()
+    print(f"[{label}] frac rel>5e-2 {frac_bad:.5f}, mean rel {mean_rel:.3g}",
+          flush=True)
+    check(frac_bad < 1e-2, f"{label}: {frac_bad} of values differ")
+    check(mean_rel < 5e-3, f"{label}: means differ by rel {mean_rel}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    from mitsuba_tpu_torch.accel import trace
+    from mitsuba_tpu_torch.core import transform as tf
+    from mitsuba_tpu_torch.film.film import Film
+    from mitsuba_tpu_torch.integrator.path import PathTracer
+    from mitsuba_tpu_torch.render import render_fn
+    from mitsuba_tpu_torch.scene.builder import compile_scene
+    from mitsuba_tpu_torch.scene.presets import cornell_box, cornell_camera
+    from mitsuba_tpu_torch.scene.shapes import sphere
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
+
+    # ---- 1. build --------------------------------------------------------
+    t0 = time.perf_counter()
+    lib, report = trace.build()
+    print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s\n"
+          f"{report}", flush=True)
+    check("registers" in report, "no ptxas register report")
+
+    # ---- 2. kernel vs plain, Cornell --------------------------------------
+    errs = {"trace_closest": 0.0, "trace_any": 0.0}
+    scene = compile_scene(cornell_box(), device=DEV)
+    check(scene.woop_clusters.shape[0] == 8, "Cornell should have 8 clusters")
+    cam = cornell_camera(CORNELL_RES, CORNELL_RES)
+    o, d = camera_rays(cam, CORNELL_RES)
+    from mitsuba_tpu_torch.integrator.common import ray_mint
+    primary = (o, d, ray_mint(o), torch.full_like(o[:, 0], 1e30), None)
+    shadow = shadow_rays(scene, o, d)
+    compare("cornell primary", scene, *primary, errs)
+    compare("cornell shadow", scene, *shadow, errs)
+
+    # ---- 3. kernel vs plain, 261k triangles (row 2's regime) --------------
+    desc = cornell_box()
+    desc.add_shape(sphere(*LARGE_SPHERE), material=0,
+                   to_world=tf.translate([0.5, 0.75, 0.5]) @ tf.scale(0.2))
+    big = compile_scene(desc, device=DEV)
+    table_mb = big.woop_clusters.numel() * 4 / 2**20
+    print(f"[large] {big.n_tris} triangles, {big.woop_clusters.shape[0]} "
+          f"clusters, Woop table {table_mb:.1f} MiB", flush=True)
+    check(table_mb > TABLE_SWITCH_MB,
+          f"large scene's table should exceed {TABLE_SWITCH_MB} MiB")
+    ob, db = camera_rays(cornell_camera(LARGE_RES, LARGE_RES), LARGE_RES,
+                         seed=1)
+    compare("large primary", big, ob, db, ray_mint(ob),
+            torch.full_like(ob[:, 0], 1e30), None, errs)
+    big_shadow = shadow_rays(big, ob, db, seed=1)
+    compare("large shadow", big, *big_shadow, errs)
+    big_primary = (ob, db, ray_mint(ob), torch.full_like(ob[:, 0], 1e30),
+                   None)
+    measure("trace_closest, large primary", False, big, big_primary, 2,
+            card)
+    measure("trace_any, large shadow", True, big, big_shadow, 2, card)
+    del big, big_primary, big_shadow
+
+    # ---- 4. the main path at full size ------------------------------------
+    film = Film(CORNELL_RES, CORNELL_RES, "box")
+    integrator = PathTracer(max_depth=MAX_DEPTH)
+    render_fn(scene, cam, film, integrator, spp=1, seed=0, device=DEV)
+    torch.cuda.synchronize()                                # (warm-up)
+    trace.reset_launches()
+    t0 = time.perf_counter()
+    img, n_rays = render_fn(scene, cam, film, integrator, spp=SPP, seed=0,
+                            device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(trace.LAUNCHES)
+    n_rays = int(n_rays)
+    mean = img.mean().item()
+    print(f"[main path] Cornell {CORNELL_RES}², {MAX_DEPTH} bounces, {SPP} "
+          f"spp: {wall:.3f} s, {n_rays} rays, {n_rays / wall:.4g} rays/s, "
+          f"mean {mean:.5f}, launches {launches} ({card})", flush=True)
+    check(img.shape == (CORNELL_RES, CORNELL_RES, 3), f"shape {img.shape}")
+    check(bool(torch.isfinite(img).all()), "image has NaN/Inf")
+    check(0.2 <= mean <= 0.3, f"image mean {mean} outside [0.2, 0.3]")
+    for key in launches:
+        check(launches[key] == MAX_DEPTH * SPP,
+              f"{key}: {launches[key]} launches, want {MAX_DEPTH * SPP}")
+    check(sum(launches.values()) == 2 * MAX_DEPTH * SPP, "launch total")
+
+    kernels = []
+    for name, any_hit, rays in (("trace_closest", False, primary),
+                                ("trace_any", True, shadow)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mitsuba_tpu_torch/csrc/trace.cu",
+            "replaces": "mitsuba_tpu/accel/pallas_trace.py:132",
+            "launches": launches[name], "max_abs_err": errs[name],
+            **measure(f"{name}, main path bounce 0", any_hit, scene, rays,
+                      10, card),
+            "library_ms": None})
+
+    profile_pass(scene, cam, film, integrator, card)
+
+    # ---- 5. kernel path against plain path, whole render -------------------
+    small_spp = 8
+    img_k = render_fn(scene, cam, film, integrator, spp=small_spp, seed=0,
+                      device=DEV)[0]
+    img_p = render_fn(scene, cam, film, PathTracer(max_depth=MAX_DEPTH,
+                                                   accel="plain"),
+                      spp=small_spp, seed=0, device=DEV)[0]
+    torch.cuda.synchronize()
+    image_rule(img_k, img_p, f"render kernel vs plain, {small_spp} spp")
+
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -20,3 +20,9 @@ if os.environ.get("MITSUBA_TPU_TESTS") != "1":
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the port's CUDA kernels); "
+        "skips without one")

@@ -1,0 +1,80 @@
+"""The port's CUDA trace kernel against its plain PyTorch version, on the
+card. Every test is marked `cuda` and skips without a card. The file
+imports neither jax nor the JAX package, so it also runs where only the
+port is installed:
+
+    MITSUBA_TPU_TESTS=1 python -m pytest tests/test_torch_kernels.py -m cuda
+"""
+import numpy as np
+import pytest
+import torch
+
+from mitsuba_tpu_torch.accel import dense as tdense
+from mitsuba_tpu_torch.accel import trace as ttrace
+from mitsuba_tpu_torch.core import transform as ttf
+from mitsuba_tpu_torch.scene import presets as tpresets
+from mitsuba_tpu_torch.scene import shapes as tshapes
+from mitsuba_tpu_torch.scene.builder import compile_scene as tcompile
+
+torch.set_num_threads(2)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+def _scene(with_sphere: bool, dev):
+    desc = tpresets.cornell_box()
+    if with_sphere:
+        desc.add_shape(tshapes.sphere(64, 128),
+                       to_world=ttf.translate([0.5, 0.4, 0.5])
+                       @ ttf.scale(0.2), material=0)
+    return tcompile(desc, device=dev)
+
+
+def _rays(dev, n=4096, seed=0):
+    """Origins inside the box, uniform directions, finite segment ends."""
+    rs = np.random.RandomState(seed)
+    o = (rs.rand(n, 3) * 0.98 + 0.01).astype(np.float32)
+    d = rs.randn(n, 3)
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    mint = np.full(n, 1e-4, np.float32)
+    seg = (rs.rand(n) * 1.2).astype(np.float32)
+    return (torch.as_tensor(x, device=dev) for x in (o, d, mint, seg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_sphere", [False, True])
+def test_kernel_matches_plain_on_card(with_sphere):
+    """The kernel and the plain version round alike op for op, so on the
+    card their hits agree exactly, in both modes and with dead lanes."""
+    dev = _card()
+    scene = _scene(with_sphere, dev)
+    o, d, mint, seg = _rays(dev)
+    maxt = torch.full_like(seg, 1e30)
+    live = torch.arange(o.shape[0], device=dev) % 5 != 0
+    ttrace.reset_launches()
+    ki = ttrace.intersect(scene, o, d, mint, maxt, live)
+    pi = tdense.ray_intersect(scene, o, d, mint, maxt, live)
+    assert torch.equal(ki.valid, pi.valid)
+    assert not ki.valid[~live].any()
+    for name in ("t", "tri_id", "p", "ns", "uv"):
+        assert torch.equal(getattr(ki, name), getattr(pi, name)), name
+    ko = ttrace.occluded(scene, o, d, mint, seg)
+    assert torch.equal(ko, tdense.ray_test(scene, o, d, mint, seg))
+    assert ttrace.LAUNCHES == {"trace_closest": 1, "trace_any": 1}
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_bad_input_on_card():
+    dev = _card()
+    scene = _scene(False, dev)
+    o, d, mint, seg = _rays(dev, 256)
+    with pytest.raises(ValueError, match="float32"):
+        ttrace.occluded(scene, o.double(), d, mint, seg)
+    with pytest.raises(ValueError, match="shape"):
+        ttrace.occluded(scene, o, d, mint[:10], seg)
+    with pytest.raises(ValueError, match="on cuda"):
+        ttrace.occluded(scene, o, d, mint.cpu(), seg)
