@@ -4,25 +4,41 @@
     python3 chip_smoke.py
 
 Phases, each of which must pass or the script exits non-zero:
-  1. build csrc/trace.cu with nvcc for sm_90a and print ptxas's register
-     and spill report;
+  1. build csrc/trace.cu and csrc/megakernel.cu with nvcc for sm_90a, one
+     nvcc per source, started together, and print ptxas's register and
+     spill reports;
   2. hold the trace kernel against its plain PyTorch version on the Cornell
      box: 256² primary rays and one bounce of NEE shadow rays, closest-hit
      and any-hit;
   3. the same on the Cornell box plus a 261k-triangle sphere (a 12.6 MB
      cluster table, the regime of the TPU package's 2-D grid kernel);
-  4. the main path at full size: Cornell 256², 8 bounces, 64 spp through
-     render_fn (render() plus the ray count) with every kernel launch
-     counted, then the kernel's own time at the main path's shapes and a
+  4. the eager path at full size: Cornell 256², 8 bounces, 64 spp through
+     render_fn (render() plus the ray count) with every trace launch
+     counted, then the trace kernel's own time at that path's shapes and a
      profile of one sample pass;
-  5. the whole render through the kernel against the whole render through
-     the plain intersector (256², 8 spp, same seed).
+  5. the whole eager render through the trace kernel against the whole
+     render through the plain intersector (256², 8 spp, same seed);
+  6. mega_bounce against its plain version, PathTracer(accel="plain")
+     .bounce, lane by lane on the 65,536 Cornell camera rays at bounce 0
+     and from the state after 5 plain bounces; then one sample pass driven
+     bounce by bounce through run_bounce (the debug entry), counted, and
+     held against run_path on the same rays;
+  7. render() with MegaPathTracer (mega_path, counted) at 256², 8 spp
+     against phase 5's plain render, and mega_path against path_plain lane
+     by lane;
+  8. render_persistent (mega_persistent) at 256², 64 spp against phase 4's
+     eager image and counts, and against persistent_plain lane by lane;
+     then the bench.py scale: 256², 2048 spp, one warm-up pass and two
+     timed passes (counted), with rays/s and the kernel's time by CUDA
+     events beside its bound.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 reports them, and {"ok": true, "device": {...}}; the line before them lists
 every ported kernel with its launches, error and times. Exits non-zero
 without a CUDA device, and without the package beside it.
 """
+import concurrent.futures
+import ctypes
 import json
 import subprocess
 import sys
@@ -48,6 +64,22 @@ OPS_DZ, OPS_T, OPS_UV = 5, 7, 28
 TRIS_PER_CLUSTER = 64
 WOOP_TRI_BYTES = 3 * 16     # three float4 rows per triangle
 AABB_ROW_BYTES = 32
+# the megakernel phases
+MEGA_SPP = 8                # render() with MegaPathTracer
+PERSIST_SPP = 64            # render_persistent against the eager image
+BENCH_SPP = 2048            # bench.py:33-36: 256², 2048 spp, 2 timed passes
+BENCH_SEEDS = (1, 2)
+# fp32 operations of one megakernel bounce outside its two traces, counted
+# from csrc/megakernel.cu path_bounce for a lane whose ray hits (add, sub,
+# mul, div, sqrt, rsqrt, min, max, abs, cos, sin and int->float each 1;
+# compares and integer RNG work not counted)
+SHADE_OPS = {"ray mint": 7, "hit record (normal, point)": 39,
+             "emitter hit + MIS": 28, "shading frame": 16,
+             "wi to local": 18, "RNG floats (NEE)": 6,
+             "emitter sample": 55, "wo to local": 15, "diffuse f": 7,
+             "shadow origin, mint, maxt": 27, "NEE MIS + L": 17,
+             "BSDF sample, next ray": 62, "Russian roulette": 11}
+CAMERA_OPS = 41             # camera_path: jitter, pinhole ray, normalize
 
 def check(cond, msg):
     if not cond:
@@ -290,14 +322,116 @@ def image_rule(img, ref, label):
     check(mean_rel < 5e-3, f"{label}: means differ by rel {mean_rel}")
 
 
+def compare_rows(label, k, p):
+    """A megakernel's output rows against its plain version's, lane by
+    lane. A lane agrees when every row is within rel 1e-5, or abs 1e-6
+    near 0; limit: >= 99.9% of lanes agree. Prints each row's max abs
+    error, the share of lanes that are bit-equal and the lanes whose
+    active flag differs. Returns the max abs error."""
+    diff = (k - p).abs()
+    ok = ((diff <= 1e-6) | (diff <= 1e-5 * p.abs())).all(0)
+    share = ok.float().mean().item()
+    bit = (k == p).all(0).float().mean().item()
+    act = int(((k[12] > 0.5) != (p[12] > 0.5)).sum())
+    rows = " ".join(f"{x:.3g}" for x in diff.max(1).values.tolist())
+    print(f"[{label}] {k.shape[1]} lanes: agree {share:.6f}, bit-equal "
+          f"{bit:.6f}, active differs on {act} lanes; row max abs: {rows}",
+          flush=True)
+    check(share >= 0.999, f"{label}: only {share} of lanes agree")
+    return diff.max().item()
+
+
+def bounce_work(scene, state, pix, samp, bounce, seed=0):
+    """needed_work for one bounce of the megakernel: the closest-hit rays
+    of the live lanes and the shadow rays the kernel traces (attempted
+    NEE with the diffuse BSDF nonzero toward the light: wi and wo above
+    the shading normal). Returns a dict of ray counts, ops and table
+    bytes."""
+    from mitsuba_tpu_torch.accel import dense
+    from mitsuba_tpu_torch.core import rng
+    from mitsuba_tpu_torch.core.math import SHADOW_EPSILON, dot
+    from mitsuba_tpu_torch.emitter.emitter import sample_direct
+    from mitsuba_tpu_torch.integrator.common import (
+        DIM_NEE_POS, DIM_NEE_SEL, bounce_dim, offset_ray_origin, ray_mint)
+    o = state[0:3].T.contiguous()
+    d = state[3:6].T.contiguous()
+    live = state[12] > 0.5
+    maxt = torch.full_like(o[:, 0], 1e30)
+    its = dense.ray_intersect(scene, o, d, ray_mint(o), maxt, live)
+    ds = sample_direct(scene, its.p,
+                       rng.sample_1d(seed, pix, bounce_dim(bounce,
+                                                           DIM_NEE_SEL), samp),
+                       rng.sample_2d(seed, pix, bounce_dim(bounce,
+                                                           DIM_NEE_POS), samp))
+    attempted = its.valid & (bounce + 3 <= MAX_DEPTH + 1) & (ds.pdf > 0)
+    traced = attempted & (dot(-d, its.ns) > 0) & (dot(ds.d, its.ns) > 0)
+    so = offset_ray_origin(its.p, its.ng, ds.d)
+    c_tests, c_ops, c_bytes = needed_work(scene, o, d, ray_mint(o), maxt,
+                                          live, False)
+    s_tests, s_ops, s_bytes = needed_work(
+        scene, so, ds.d, ray_mint(so), ds.dist * (1.0 - SHADOW_EPSILON),
+        traced, True)
+    return {"trace": int(live.sum()), "hit": int(its.valid.sum()),
+            "shadow": int(attempted.sum()), "c_ops": c_ops, "s_ops": s_ops,
+            "tests": c_tests + s_tests, "table_bytes": max(c_bytes, s_bytes)}
+
+
+def mega_bound(label, work, n_trace, n_shadow, n_paths, lanes, rows_in,
+               rows_out, tables, card):
+    """The card's least time for a megakernel launch that traced n_trace
+    closest-hit rays, attempted n_shadow shadow rays and started n_paths
+    camera paths: fp32 ops, the triangle tests' per ray as `work` (a
+    sample of this run's rays, bounce_work) counts them, plus SHADE_OPS
+    per hit and CAMERA_OPS per path, over 67 TFLOP/s; and the bytes, the
+    tables once and the lane state in and out, over 3.35 TB/s."""
+    shade = sum(SHADE_OPS.values())
+    ops = (n_trace * (work["c_ops"] + work["hit"] * shade) / work["trace"]
+           + n_shadow * work["s_ops"] / max(work["shadow"], 1)
+           + n_paths * CAMERA_OPS)
+    table_bytes = (work["table_bytes"]
+                   + sum(t.numel() * 4 for t in (
+                       tables.attr[:tables.n_tris], tables.mat,
+                       tables.em_rows[:tables.et_real],
+                       tables.em_meta[:max(tables.em_count, 1)],
+                       tables.em_cdf)))
+    n_bytes = table_bytes + lanes * (4 * (rows_in + rows_out) + 8)
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
+    out = {"bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    print(f"[bound] {label}: {out['bound_ms']:.5g} ms by {out['bound_by']} "
+          f"({ops:.4g} fp32 ops: {n_trace} traced rays x "
+          f"{work['c_ops'] / work['trace']:.1f} test ops, "
+          f"{work['hit'] / work['trace']:.4f} hits per ray x {shade} "
+          f"shading ops, {n_shadow} shadow attempts x "
+          f"{work['s_ops'] / max(work['shadow'], 1):.1f} test ops, "
+          f"{n_paths} paths x {CAMERA_OPS} camera ops; {n_bytes} bytes) "
+          f"({card})", flush=True)
+    return out
+
+
+def events_ms(fn):
+    """Device time of one fn() by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    from mitsuba_tpu_torch.accel import megakernel as mk
     from mitsuba_tpu_torch.accel import trace
     from mitsuba_tpu_torch.core import transform as tf
     from mitsuba_tpu_torch.film.film import Film
-    from mitsuba_tpu_torch.integrator.path import PathTracer
+    from mitsuba_tpu_torch.integrator.mega import (MegaPathTracer,
+                                                   render_persistent)
+    from mitsuba_tpu_torch.integrator.path import PathTracer, initial_state
     from mitsuba_tpu_torch.render import render_fn
     from mitsuba_tpu_torch.scene.builder import compile_scene
     from mitsuba_tpu_torch.scene.presets import cornell_box, cornell_camera
@@ -310,12 +444,19 @@ def main():
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
-    # ---- 1. build --------------------------------------------------------
+    # ---- 1. build (one nvcc per source, started together) -------------
     t0 = time.perf_counter()
-    lib, report = trace.build()
-    print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s\n"
-          f"{report}", flush=True)
-    check("registers" in report, "no ptxas register report")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(trace.build), pool.submit(mk.build)]
+        builds = [b.result() for b in builds]
+    print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+    for lib, report in builds:
+        print(f"[build] {lib.name}\n{report}", flush=True)
+        check("registers" in report, f"{lib.name}: no ptxas register report")
+    props = torch.cuda.get_device_properties(0)
+    print(f"[build] {props.multi_processor_count} SMs; one lane per pixel "
+          f"gives {CORNELL_RES ** 2 // 32 / props.multi_processor_count:.1f}"
+          f" warps per SM at {CORNELL_RES}²", flush=True)
 
     # ---- 2. kernel vs plain, Cornell --------------------------------------
     errs = {"trace_closest": 0.0, "trace_any": 0.0}
@@ -392,14 +533,164 @@ def main():
     profile_pass(scene, cam, film, integrator, card)
 
     # ---- 5. kernel path against plain path, whole render -------------------
-    small_spp = 8
+    small_spp = MEGA_SPP
     img_k = render_fn(scene, cam, film, integrator, spp=small_spp, seed=0,
                       device=DEV)[0]
-    img_p = render_fn(scene, cam, film, PathTracer(max_depth=MAX_DEPTH,
-                                                   accel="plain"),
-                      spp=small_spp, seed=0, device=DEV)[0]
+    img_p, n_plain = render_fn(scene, cam, film,
+                               PathTracer(max_depth=MAX_DEPTH, accel="plain"),
+                               spp=small_spp, seed=0, device=DEV)
     torch.cuda.synchronize()
     image_rule(img_k, img_p, f"render kernel vs plain, {small_spp} spp")
+
+    # ---- 6. mega_bounce ---------------------------------------------------
+    integ = MegaPathTracer.for_scene(scene, max_depth=MAX_DEPTH)
+    tables, rr = integ.tables, integ.rr_depth
+    pix = torch.arange(CORNELL_RES ** 2, dtype=torch.int32, device=DEV)
+    samp = torch.zeros_like(pix)
+    o0, d0 = mk.primary_rays(cam, 0, pix, 0)
+    st0 = initial_state(o0, d0)
+    states = [st0]          # the plain wavefront before each bounce
+    for b in range(MAX_DEPTH - 1):
+        states.append(mk.bounce_plain(tables, rr, MAX_DEPTH, states[-1], pix,
+                                      samp, 0, b)[:16])
+    bounce_err = 0.0
+    for b in (0, 5):
+        k = mk.run_bounce(tables, rr, MAX_DEPTH, states[b], pix, samp, 0, b)
+        pl = mk.bounce_plain(tables, rr, MAX_DEPTH, states[b], pix, samp, 0,
+                             b)
+        bounce_err = max(bounce_err,
+                         compare_rows(f"mega_bounce, bounce {b}", k, pl))
+    # the bounce path: one sample pass bounce by bounce through run_bounce
+    mk.reset_launches()
+    st, counts = st0, torch.zeros_like(st0[:2])
+    for b in range(MAX_DEPTH):
+        out = mk.run_bounce(tables, rr, MAX_DEPTH, st, pix, samp, 0, b)
+        st, counts = out[:16], counts + out[16:18]
+    torch.cuda.synchronize()
+    bounce_launches = mk.LAUNCHES["mega_bounce"]
+    ref = mk.run_path(tables, rr, MAX_DEPTH, MAX_DEPTH, st0, pix, samp, 0)
+    same = torch.equal(st, ref[:16]) and torch.equal(counts, ref[16:18])
+    print(f"[bounce path] {bounce_launches} mega_bounce launches for one "
+          f"sample pass; equal to mega_path on the same rays: {same}",
+          flush=True)
+    check(bounce_launches == MAX_DEPTH,
+          f"mega_bounce launched {bounce_launches} times")
+    check(same, "bounce-by-bounce pass differs from mega_path")
+    work = [bounce_work(scene, st, pix, samp, b)
+            for b, st in enumerate(states)]
+    work_pass = {key: sum(w[key] for w in work) for key in work[0]}
+    work_pass["table_bytes"] = max(w["table_bytes"] for w in work)
+    out0 = mk.run_bounce(tables, rr, MAX_DEPTH, st0, pix, samp, 0, 0)
+    kernels.append({
+        "name": "mega_bounce", "route": "cuda",
+        "source": "mitsuba_tpu_torch/csrc/megakernel.cu",
+        "replaces": "mitsuba_tpu/accel/megakernel.py:1395",
+        "launches": bounce_launches, "max_abs_err": bounce_err,
+        "ms": time_ms(lambda: mk.run_bounce(tables, rr, MAX_DEPTH, st0, pix,
+                                            samp, 0, 0), 50),
+        "plain_ms": time_ms(lambda: mk.bounce_plain(
+            tables, rr, MAX_DEPTH, st0, pix, samp, 0, 0), 5, warmup=1),
+        **mega_bound("mega_bounce, bounce 0", work[0],
+                     int(out0[16].sum()), int(out0[17].sum()), 0,
+                     pix.shape[0], 16, 18, tables, card),
+        "library_ms": None})
+
+    # ---- 7. mega_path: render() with MegaPathTracer ------------------------
+    mk.reset_launches()
+    img_m, n_mega = render_fn(scene, cam, film, integ, spp=MEGA_SPP, seed=0,
+                              device=DEV)
+    torch.cuda.synchronize()
+    path_launches = mk.LAUNCHES["mega_path"]
+    n_mega, n_plain = int(n_mega), int(n_plain)
+    print(f"[mega path] render() with MegaPathTracer, {MEGA_SPP} spp: "
+          f"{path_launches} mega_path launches, {n_mega} rays (plain "
+          f"{n_plain}), mean {img_m.mean().item():.5f}", flush=True)
+    check(path_launches == MEGA_SPP,
+          f"mega_path launched {path_launches} times, want {MEGA_SPP}")
+    image_rule(img_m, img_p, f"render MegaPathTracer vs plain, {MEGA_SPP} spp")
+    check(abs(n_mega - n_plain) <= 1e-4 * n_plain,
+          f"ray counts {n_mega} vs {n_plain}")
+    k = mk.run_path(tables, rr, MAX_DEPTH, MAX_DEPTH, st0, pix, samp, 0)
+    pl = mk.path_plain(tables, rr, MAX_DEPTH, MAX_DEPTH, st0, pix, samp, 0)
+    path_err = compare_rows("mega_path, one sample", k, pl)
+    kernels.append({
+        "name": "mega_path", "route": "cuda",
+        "source": "mitsuba_tpu_torch/csrc/megakernel.cu",
+        "replaces": "mitsuba_tpu/accel/megakernel.py:1423",
+        "launches": path_launches, "max_abs_err": path_err,
+        "ms": time_ms(lambda: mk.run_path(tables, rr, MAX_DEPTH, MAX_DEPTH,
+                                          st0, pix, samp, 0), 20),
+        "plain_ms": time_ms(lambda: mk.path_plain(
+            tables, rr, MAX_DEPTH, MAX_DEPTH, st0, pix, samp, 0), 2,
+            warmup=1),
+        **mega_bound("mega_path, one sample", work_pass, int(k[16].sum()),
+                     int(k[17].sum()), 0, pix.shape[0], 16, 18, tables,
+                     card),
+        "library_ms": None})
+
+    # ---- 8. mega_persistent: render_persistent -----------------------------
+    img_r, n_r = render_persistent(integ, cam, PERSIST_SPP, seed=0)
+    torch.cuda.synchronize()
+    n_r = int(n_r)
+    print(f"[persistent] {PERSIST_SPP} spp: {n_r} rays (eager {n_rays}), "
+          f"mean {img_r.mean().item():.5f} (eager {mean:.5f})", flush=True)
+    check(bool(torch.isfinite(img_r).all()), "persistent image has NaN/Inf")
+    image_rule(img_r, img, f"render_persistent vs eager, {PERSIST_SPP} spp")
+    check(abs(n_r - n_rays) <= 1e-4 * n_rays,
+          f"persistent ray count {n_r} vs eager {n_rays}")
+    pst = torch.cat([st0, torch.zeros_like(st0[:8])])
+    run_p = lambda spp, seed: mk.run_persistent(
+        tables, rr, MAX_DEPTH, spp, cam, pst, pix, samp, seed)
+    k = run_p(PERSIST_SPP, 0)
+    plain_ms, pl = events_ms(lambda: mk.persistent_plain(
+        tables, rr, MAX_DEPTH, PERSIST_SPP, cam, pst, pix, samp, 0))
+    persist_err = compare_rows(f"mega_persistent, {PERSIST_SPP} spp", k, pl)
+    persist_row = {
+        "ms": time_ms(lambda: run_p(PERSIST_SPP, 0), 5, warmup=1),
+        "plain_ms": plain_ms,
+        **mega_bound(f"mega_persistent, {PERSIST_SPP} spp", work_pass,
+                     int(k[22].sum()), int(k[23].sum()),
+                     PERSIST_SPP * pix.shape[0], pix.shape[0], 24, 24,
+                     tables, card)}
+
+    # the bench.py scale: one warm-up pass, two timed passes
+    render_persistent(integ, cam, BENCH_SPP, seed=0)
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    bench = [render_persistent(integ, cam, BENCH_SPP, seed=s)
+             for s in BENCH_SEEDS]
+    torch.cuda.synchronize()
+    bench_wall = time.perf_counter() - t0
+    persist_launches = mk.LAUNCHES["mega_persistent"]
+    bench_rays = sum(int(n) for _, n in bench)
+    print(f"[bench] Cornell {CORNELL_RES}², {MAX_DEPTH} bounces, {BENCH_SPP}"
+          f" spp x {len(BENCH_SEEDS)} passes: {bench_wall:.4f} s, "
+          f"{bench_rays} rays, {bench_rays / bench_wall:.6g} rays/s, means "
+          f"{[round(i.mean().item(), 5) for i, _ in bench]}, "
+          f"{persist_launches} mega_persistent launches ({card})",
+          flush=True)
+    check(persist_launches == len(BENCH_SEEDS),
+          f"mega_persistent launched {persist_launches} times")
+    for i, _ in bench:
+        check(bool(torch.isfinite(i).all()) and 0.2 <= i.mean().item() <= 0.3,
+              "bench image not finite or mean outside [0.2, 0.3]")
+    for s in BENCH_SEEDS:
+        ms_s, out = events_ms(lambda: run_p(BENCH_SPP, s))
+        rays_s = int(out[22].sum()) + int(out[23].sum())
+        print(f"[bench] mega_persistent launch, seed {s}: {ms_s:.4f} ms "
+              f"(CUDA events), {rays_s} rays, {rays_s / ms_s * 1e3:.6g} "
+              f"rays/s in the kernel ({card})", flush=True)
+        mega_bound(f"mega_persistent, {BENCH_SPP} spp, seed {s}", work_pass,
+                   int(out[22].sum()), int(out[23].sum()),
+                   BENCH_SPP * pix.shape[0], pix.shape[0], 24, 24, tables,
+                   card)
+    kernels.append({
+        "name": "mega_persistent", "route": "cuda",
+        "source": "mitsuba_tpu_torch/csrc/megakernel.cu",
+        "replaces": "mitsuba_tpu/accel/megakernel.py:2478",
+        "launches": persist_launches, "max_abs_err": persist_err,
+        **persist_row, "library_ms": None})
 
     print(json.dumps({"kernels": kernels}))
     print(card)

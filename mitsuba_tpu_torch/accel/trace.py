@@ -27,10 +27,10 @@ from . import dense
 TRIS_PER_CLUSTER = 64       # triangles per kernel cluster (csrc/trace.cu)
 ORDER_MAX_CLUSTERS = 128    # order tables are built up to this many clusters
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "trace.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Kernel launches per entry point; only the two wrappers below add to them.
 LAUNCHES = {"trace_closest": 0, "trace_any": 0}
@@ -117,33 +117,44 @@ def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build csrc/trace.cu")
+                           "build the kernels in csrc/")
     return path
 
 
 @functools.lru_cache(maxsize=None)
-def build() -> tuple[Path, str]:
-    """Compile csrc/trace.cu into build/kernels/ (once per source hash).
-    Returns (library path, ptxas register and spill report); the report is
-    kept beside the library, so a cached build returns it too."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"libmitsuba_trace_{tag[:16]}.so"
+def build_library(source: str, stem: str, extra_flags: tuple = ()
+                  ) -> tuple[Path, str]:
+    """Compile csrc/<source> with nvcc into build/kernels/, once per hash
+    of the source, every csrc/*.cuh header and the flags. Returns (library
+    path, ptxas register and spill report); the report is kept beside the
+    library, so a cached build returns it too."""
+    path = CSRC / source
+    flags = list(NVCC_FLAGS) + list(extra_flags)
+    digest = hashlib.sha256(path.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(flags).encode())
+    lib = BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
     report_file = lib.with_suffix(".ptxas.txt")
     if lib.exists() and report_file.exists():
         return lib, report_file.read_text()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(_SOURCE)], capture_output=True, text=True)
+    proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(path)],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {path}:\n{proc.stderr}")
     report = "\n".join(line for line in proc.stderr.splitlines()
                        if any(k in line for k in ("entry function",
                                                   "registers", "spill")))
     report_file.write_text(report)
     os.replace(tmp, lib)
     return lib, report
+
+
+def build() -> tuple[Path, str]:
+    """Build csrc/trace.cu (see build_library)."""
+    return build_library("trace.cu", "mitsuba_trace")
 
 
 @functools.lru_cache(maxsize=None)
@@ -157,7 +168,7 @@ def _library():
     return fn
 
 
-def _check(x: torch.Tensor, name, dtype, shape, device, align=1):
+def check_tensor(x: torch.Tensor, name, dtype, shape, device, align=1):
     if x.device != device or x.dtype != dtype or tuple(x.shape) != shape \
             or not x.is_contiguous() or x.data_ptr() % align:
         raise ValueError(
@@ -178,15 +189,15 @@ def trace(scene: SceneData, o, d, mint, maxt, live, any_hit: bool):
     if aabb is None:
         raise ValueError("scene has no cluster_aabb table")
     c = woop.shape[0]
-    _check(woop, "woop_clusters", torch.float32,
+    check_tensor(woop, "woop_clusters", torch.float32,
            (c, 3 * TRIS_PER_CLUSTER, 4), dev, align=16)
-    _check(aabb, "cluster_aabb", torch.float32, (c, 8), dev, align=16)
+    check_tensor(aabb, "cluster_aabb", torch.float32, (c, 8), dev, align=16)
     for x, name in ((o, "o"), (d, "d")):
-        _check(x, name, torch.float32, (n, 3), dev)
+        check_tensor(x, name, torch.float32, (n, 3), dev)
     for x, name in ((mint, "mint"), (maxt, "maxt")):
-        _check(x, name, torch.float32, (n,), dev)
+        check_tensor(x, name, torch.float32, (n,), dev)
     if live is not None:
-        _check(live, "live", torch.bool, (n,), dev)
+        check_tensor(live, "live", torch.bool, (n,), dev)
     hit = torch.empty(n, dtype=torch.bool, device=dev)
     if any_hit:
         t = tri = u = v = None

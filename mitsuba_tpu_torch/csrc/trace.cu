@@ -8,12 +8,13 @@
 // table size: the table is read from global memory through the read-only
 // cache, so no size switch is needed.
 //
-// Design: one thread per ray. Clusters are visited in index order; each is
-// slab-tested against the ray with the far bound min(maxt, t_best), and an
-// entered cluster's 64 triangles are tested in index order. The best hit is
-// replaced only on a strictly smaller t, so among equal t the lowest
-// triangle index wins, as in the plain version (accel/dense.py) and the
-// Pallas kernels. Any-hit mode returns at the first valid hit.
+// Design: one thread per ray, each walking the clusters with
+// mitsuba_walk::trace_ray (trace_common.cuh, shared with the path
+// megakernel in megakernel.cu): clusters in index order behind a slab gate,
+// triangles in index order, the best hit replaced only on a strictly
+// smaller t, so the lowest triangle index wins among equal t as in the
+// plain version (accel/dense.py) and the Pallas kernels. Any-hit mode
+// returns at the first valid hit.
 //
 // What bounds it on the H100: fp32 arithmetic. A ray-triangle test is ~40
 // fp32 operations on 48 bytes of table that every thread of a warp reads at
@@ -21,33 +22,19 @@
 // and 17 out; the cluster slab gate is what keeps the test count down. The
 // TPU kernel's front-to-back ordered walk with early exit is not ported yet.
 //
-// Float operations are written with the _rn intrinsics so nvcc cannot
-// contract them into FMAs: the kernel then rounds exactly as the plain
+// The walk writes its float operations with the _rn intrinsics, so nvcc
+// cannot contract them into FMAs: the kernel rounds exactly as the plain
 // PyTorch version does, op for op, and the two agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "trace_common.cuh"
+
 namespace {
 
-constexpr int kTrisPerCluster = 64;  // build_woop_clustered's cluster size
-constexpr float kMiss = 1e30f;       // t reported for a miss
-constexpr float kDzEps = 1e-12f;     // |d'_z| below this: ray parallel
-// Relative slack on the slab test: entering a cluster never changes the
-// result, so the gate is widened to stay conservative under rounding for
-// hits that lie on a cluster's bounding box (flat walls, shared vertices).
-constexpr float kSlabSlack = 1e-5f;
-
-__device__ __forceinline__ float safe_inv(float x) {
-  return fabsf(x) < 1e-12f ? (x >= 0.f ? 1e30f : -1e30f) : __frcp_rn(x);
-}
-
-// ((a.x*x + a.y*y) + a.z*z) + w, rounded after every operation.
-__device__ __forceinline__ float affine(float4 a, float x, float y, float z,
-                                        float w) {
-  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(a.x, x), __fmul_rn(a.y, y)),
-                             __fmul_rn(a.z, z)), w);
-}
+using mitsuba_walk::Hit;
+using mitsuba_walk::kMiss;
 
 template <bool kAnyHit>
 __global__ void __launch_bounds__(128)
@@ -67,61 +54,19 @@ trace_kernel(const float4* __restrict__ woop,   // [C, 3*64] (w0,w1,w2,tr)
              uint8_t* __restrict__ hit_out) {   // [N]
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  float t_best = kMiss, u_best = 0.f, v_best = 0.f;
-  int tri_best = 0;
-  bool found = false;
+  Hit h{kMiss, 0.f, 0.f, 0, false};
   if (live == nullptr || live[i]) {
-    const float ox = ray_o[3 * i], oy = ray_o[3 * i + 1],
-                oz = ray_o[3 * i + 2];
-    const float dx = ray_d[3 * i], dy = ray_d[3 * i + 1],
-                dz = ray_d[3 * i + 2];
-    const float mint = mint_in[i], maxt = maxt_in[i];
-    const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-    for (int c = 0; c < n_clusters && !(kAnyHit && found); ++c) {
-      // row c: (min x, min y, min z, max x) then (max y, max z)
-      const float4 r0 = __ldg(reinterpret_cast<const float4*>(aabb + 8 * c));
-      const float2 r1 = __ldg(reinterpret_cast<const float2*>(aabb + 8 * c + 4));
-      const float lx = r0.x, ly = r0.y, lz = r0.z;
-      const float hx = r0.w, hy = r1.x, hz = r1.y;
-      if (lx > hx || ly > hy || lz > hz) continue;  // padding cluster
-      const float t0x = (lx - ox) * ix, t1x = (hx - ox) * ix;
-      const float t0y = (ly - oy) * iy, t1y = (hy - oy) * iy;
-      const float t0z = (lz - oz) * iz, t1z = (hz - oz) * iz;
-      const float near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                               fmaxf(fminf(t0z, t1z), mint));
-      const float far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                              fminf(fmaxf(t0z, t1z), fminf(maxt, t_best)));
-      if (near > far + kSlabSlack * fabsf(far)) continue;
-      const float4* w = woop + (size_t)c * 3 * kTrisPerCluster;
-      for (int k = 0; k < kTrisPerCluster; ++k) {
-        const float4 wx = __ldg(w + k);
-        const float4 wy = __ldg(w + kTrisPerCluster + k);
-        const float4 wz = __ldg(w + 2 * kTrisPerCluster + k);
-        const float dpz = affine(wz, dx, dy, dz, 0.f);
-        if (fabsf(dpz) < kDzEps) continue;
-        const float opz = affine(wz, ox, oy, oz, wz.w);
-        const float t = __fdiv_rn(-opz, dpz);
-        if (!(t > mint && t < maxt && t < t_best)) continue;
-        const float u = __fadd_rn(affine(wx, ox, oy, oz, wx.w),
-                                  __fmul_rn(t, affine(wx, dx, dy, dz, 0.f)));
-        const float v = __fadd_rn(affine(wy, ox, oy, oz, wy.w),
-                                  __fmul_rn(t, affine(wy, dx, dy, dz, 0.f)));
-        if (fminf(fminf(u, v), __fsub_rn(__fsub_rn(1.f, u), v)) < 0.f) continue;
-        found = true;
-        if (kAnyHit) break;
-        t_best = t;
-        u_best = u;
-        v_best = v;
-        tri_best = c * kTrisPerCluster + k;
-      }
-    }
+    h = mitsuba_walk::trace_ray<kAnyHit>(
+        woop, aabb, n_clusters, ray_o[3 * i], ray_o[3 * i + 1],
+        ray_o[3 * i + 2], ray_d[3 * i], ray_d[3 * i + 1], ray_d[3 * i + 2],
+        mint_in[i], maxt_in[i]);
   }
-  hit_out[i] = found;
+  hit_out[i] = h.found;
   if (!kAnyHit) {
-    t_out[i] = t_best;
-    tri_out[i] = tri_best;
-    u_out[i] = u_best;
-    v_out[i] = v_best;
+    t_out[i] = h.t;
+    tri_out[i] = h.tri;
+    u_out[i] = h.u;
+    v_out[i] = h.v;
   }
 }
 

@@ -13,6 +13,18 @@ from .sampler.sampler import draw_2d
 from .scene.scene import SceneData
 
 
+def sample_camera(camera, width: int, seed, px, s):
+    """Camera rays of pixels px [N] (row-major ids in a film `width`
+    wide) at sample index s, jittered within their pixels: (continuous
+    pixel positions [N, 2], o [N, 3], d [N, 3]). Every (pixel, sample)
+    draws the JAX package's sample stream."""
+    jitter = draw_2d(seed, px, s, DIM_PIXEL)
+    pos = torch.stack([(px % width).to(torch.float32) + jitter[:, 0],
+                       (px // width).to(torch.float32) + jitter[:, 1]], -1)
+    ap = rng.sample_2d(seed, px, DIM_APERTURE, s)
+    return (pos, *camera.sample_ray(pos, ap))
+
+
 def render_fn(scene: SceneData, camera, film: Film, integrator, spp: int,
               seed: int = 0, device="cuda"):
     """Render; returns (developed [H, W, 3] image, traced-ray count as a
@@ -24,15 +36,10 @@ def render_fn(scene: SceneData, camera, film: Film, integrator, spp: int,
                          f"for {dev}")
     h, w = film.height, film.width
     px = torch.arange(h * w, dtype=torch.int64, device=scene.device)
-    pix_x = (px % w).to(torch.float32)
-    pix_y = (px // w).to(torch.float32)
     accum = film.new_accumulator(scene.device)
     n_rays = torch.zeros((), dtype=torch.int64, device=scene.device)
     for s in range(spp):
-        jitter = draw_2d(seed, px, s, DIM_PIXEL)
-        pos = torch.stack([pix_x + jitter[:, 0], pix_y + jitter[:, 1]], -1)
-        ap = rng.sample_2d(seed, px, DIM_APERTURE, s)
-        o, d = camera.sample_ray(pos, ap)
+        pos, o, d = sample_camera(camera, w, seed, px, s)
         radiance, rays = integrator.li_stats(scene, o, d, seed, px, s)
         film.splat(accum, pos, radiance)
         n_rays = n_rays + rays

@@ -1,5 +1,5 @@
-"""The port's CUDA trace kernel against its plain PyTorch version, on the
-card. Every test is marked `cuda` and skips without a card. The file
+"""The port's CUDA kernels (the trace kernel and the path megakernels)
+against their plain PyTorch versions, on the card. Every test is marked `cuda` and skips without a card. The file
 imports neither jax nor the JAX package, so it also runs where only the
 port is installed:
 
@@ -10,8 +10,11 @@ import pytest
 import torch
 
 from mitsuba_tpu_torch.accel import dense as tdense
+from mitsuba_tpu_torch.accel import megakernel as tmk
 from mitsuba_tpu_torch.accel import trace as ttrace
 from mitsuba_tpu_torch.core import transform as ttf
+from mitsuba_tpu_torch.integrator.mega import MegaPathTracer
+from mitsuba_tpu_torch.integrator.path import initial_state
 from mitsuba_tpu_torch.scene import presets as tpresets
 from mitsuba_tpu_torch.scene import shapes as tshapes
 from mitsuba_tpu_torch.scene.builder import compile_scene as tcompile
@@ -78,3 +81,55 @@ def test_kernel_rejects_bad_input_on_card():
         ttrace.occluded(scene, o, d, mint[:10], seg)
     with pytest.raises(ValueError, match="on cuda"):
         ttrace.occluded(scene, o, d, mint.cpu(), seg)
+
+
+def _mega_inputs(dev, res=32):
+    """Cornell tables and res² camera-ray lanes on the card."""
+    scene = tcompile(tpresets.cornell_box(), device=dev)
+    cam = tpresets.cornell_camera(res, res)
+    pix = torch.arange(res * res, dtype=torch.int32, device=dev)
+    o, d = tmk.primary_rays(cam, 0, pix, 0)
+    return (MegaPathTracer.for_scene(scene).tables, cam, pix,
+            torch.zeros_like(pix), initial_state(o, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounce", [0, 3])
+def test_mega_bounce_matches_plain_on_card(bounce):
+    """The megakernel rounds as the eager plain bounce does, op for op, so
+    on the card every output row agrees exactly, dead lanes included."""
+    dev = _card()
+    tables, _, pix, samp, st = _mega_inputs(dev)
+    for b in range(bounce):
+        st = tmk.bounce_plain(tables, 5, 8, st, pix, samp, 7, b)[:16]
+    tmk.reset_launches()
+    k = tmk.run_bounce(tables, 5, 8, st, pix, samp, 7, bounce)
+    p = tmk.bounce_plain(tables, 5, 8, st, pix, samp, 7, bounce)
+    assert torch.equal(k, p)
+    assert tmk.LAUNCHES["mega_bounce"] == 1
+
+
+@pytest.mark.cuda
+def test_mega_path_and_persistent_match_plain_on_card():
+    dev = _card()
+    tables, cam, pix, samp, st = _mega_inputs(dev)
+    tmk.reset_launches()
+    k = tmk.run_path(tables, 5, 8, 8, st, pix, samp, 1)
+    assert torch.equal(k, tmk.path_plain(tables, 5, 8, 8, st, pix, samp, 1))
+    pst = torch.cat([st, torch.zeros_like(st[:8])])
+    k = tmk.run_persistent(tables, 5, 8, 3, cam, pst, pix, samp, 1)
+    p = tmk.persistent_plain(tables, 5, 8, 3, cam, pst, pix, samp, 1)
+    assert torch.equal(k, p)
+    assert (k[17] == 3).all()
+    assert tmk.LAUNCHES == {"mega_bounce": 0, "mega_path": 1,
+                            "mega_persistent": 1}
+
+
+@pytest.mark.cuda
+def test_mega_rejects_bad_input_on_card():
+    dev = _card()
+    tables, _, pix, samp, st = _mega_inputs(dev, 8)
+    with pytest.raises(ValueError, match="int32"):
+        tmk.run_bounce(tables, 5, 8, st, pix.long(), samp, 0, 0)
+    with pytest.raises(ValueError, match="shape"):
+        tmk.run_path(tables, 5, 8, 8, st[:12], pix, samp, 0)
