@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Phases, each of which must pass or the script exits non-zero:
-  1. build csrc/trace.cu and csrc/megakernel.cu with nvcc for sm_90a, one
-     nvcc per source, started together, and print ptxas's register and
-     spill reports;
+  1. build csrc/trace.cu, csrc/megakernel.cu and csrc/shade.cu with nvcc
+     for sm_90a, one nvcc per source, started together, and print
+     ptxas's register and spill reports;
   2. hold the trace kernel against its plain PyTorch version on the Cornell
      box: 256² primary rays and one bounce of NEE shadow rays, closest-hit
      and any-hit;
@@ -30,7 +30,17 @@ Phases, each of which must pass or the script exits non-zero:
      eager image and counts, and against persistent_plain lane by lane;
      then the bench.py scale: 256², 2048 spp, one warm-up pass and two
      timed passes (counted), with rays/s and the kernel's time by CUDA
-     events beside its bound.
+     events beside its bound;
+  9. the fused shade kernel (csrc/shade.cu) against its plain version,
+     shade_plain, lane by lane on the four-material scene (diffuse
+     ground, GGX rough-conductor and dielectric spheres, conductor cube,
+     area light) at 65,536 lanes, at bounce 0 and bounce 3, with the
+     share of lanes that trace a shadow ray, its time and bound; then
+     the same comparison with every material two-sided;
+ 10. that scene's path through render() with PathTracer(max_depth=6,
+     fused_shade="on") at 256², 64 spp (counted) against fused_shade=
+     "off" under the image rule, with both rays/s and a 1-spp profile of
+     each.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 reports them, and {"ok": true, "device": {...}}; the line before them lists
@@ -38,7 +48,6 @@ every ported kernel with its launches, error and times. Exits non-zero
 without a CUDA device, and without the package beside it.
 """
 import concurrent.futures
-import ctypes
 import json
 import subprocess
 import sys
@@ -80,6 +89,21 @@ SHADE_OPS = {"ray mint": 7, "hit record (normal, point)": 39,
              "shadow origin, mint, maxt": 27, "NEE MIS + L": 17,
              "BSDF sample, next ray": 62, "Russian roulette": 11}
 CAMERA_OPS = 41             # camera_path: jitter, pinhole ray, normalize
+# the fused shade phases: the four-material scene of
+# tests/test_pallas_tpu.py:160-183 at 256², 6 bounces, 64 spp
+SHADE_DEPTH = 6
+SHADE_BOUNCES = (0, 3)
+# fp32 operations of the fused shade kernel for one active lane, counted
+# from csrc/shade.cu and csrc/bsdf_common.cuh as SHADE_OPS is: the work
+# every active lane does, the BSDF eval toward the light by family (only
+# where wi and wo are both above the surface), the BSDF sample by family,
+# the shadow ray's origin and range (lanes that trace it) and Russian
+# roulette (bounces past rr_depth)
+SHADE_KERNEL_OPS = {"common": 127, "shadow setup": 8, "roulette": 4,
+                    "eval": {0: 7, 2: 191},
+                    "sample": {0: 18, 1: 104, 2: 262, 3: 38}}
+SHADE_ROWS_IN, SHADE_ROWS_OUT = 50, 16
+SHADE_ROWS_DEAD = 11        # act, p, d, L, eta: what an inactive lane reads
 
 def check(cond, msg):
     if not cond:
@@ -421,11 +445,197 @@ def events_ms(fn):
     return start.elapsed_time(end), out
 
 
+def four_materials_desc(desc_cls, tf, shapes, sphere=(16, 32),
+                        two_sided=False, ggx=None):
+    """The scene of tests/test_pallas_tpu.py:160-183 through a builder
+    API: desc_cls, tf and shapes are the port's (or the JAX package's)
+    SceneDesc, transform and shapes modules. two_sided puts every
+    material behind the two-sided adapter (the glass sphere's inside
+    then shades as its outside); ggx overrides rough-conductor fields."""
+    d = desc_cls()
+    white = d.add_material(kind="diffuse", albedo=(0.7, 0.7, 0.7),
+                           two_sided=two_sided)
+    rough = d.add_material(kind="roughconductor", alpha=0.2,
+                           two_sided=two_sided, **(ggx or {}))
+    glass = d.add_material(kind="dielectric", int_ior=1.5,
+                           two_sided=two_sided)
+    mirror = d.add_material(kind="conductor", two_sided=two_sided)
+    d.add_shape(shapes.rectangle(), material=white,
+                to_world=tf.translate([0, -1, 0])
+                @ tf.rotate([1, 0, 0], -90) @ tf.scale([6] * 3))
+    d.add_shape(shapes.sphere(*sphere), to_world=tf.translate([-1.5, 0, 0]),
+                material=rough)
+    d.add_shape(shapes.sphere(*sphere), to_world=tf.translate([1.5, 0, 0]),
+                material=glass)
+    d.add_shape(shapes.cube(), material=mirror,
+                to_world=tf.translate([0, 0, -2]) @ tf.scale([0.7] * 3))
+    d.add_shape(shapes.rectangle(), material=white,
+                radiance=(10.0, 9.0, 8.0),
+                to_world=tf.translate([0, 4, 0])
+                @ tf.rotate([1, 0, 0], 90) @ tf.scale([1.5] * 3))
+    return d
+
+
+def four_materials(res, device=DEV, two_sided=False):
+    """The four-material scene (sphere(16, 32)) compiled on `device`, and
+    a res² camera at (0, 1, 6) looking along (0, -0.1, -1) with a 39°
+    fov."""
+    from mitsuba_tpu_torch.core import transform as tf
+    from mitsuba_tpu_torch.scene import shapes
+    from mitsuba_tpu_torch.scene.builder import SceneDesc, compile_scene
+    from mitsuba_tpu_torch.sensor.sensor import PerspectiveCamera
+    desc = four_materials_desc(SceneDesc, tf, shapes, two_sided=two_sided)
+    cam = PerspectiveCamera(res, res, 39.0, tf.look_at(
+        origin=[0, 1, 6], target=[0, 0.9, 5], up=[0, 1, 0]))
+    return compile_scene(desc, device=device), cam
+
+
+def shade_bound(label, scene, packed, bounce, rr_depth, card):
+    """The card's least time for one fused shade launch on these rows: the
+    bytes over 3.35 TB/s and the fp32 operations over 67 TFLOP/s, each
+    lane counted by what it does. A lane active on entry reads the K_IN
+    rows and its pixel and sample ids; one inactive on entry reads only
+    the SHADE_ROWS_DEAD rows it passes through; every lane writes the
+    K_OUT rows; the NEE distance row is read only by the lanes that
+    trace a shadow ray, and the table rows those rays need come on top.
+    Operations: SHADE_KERNEL_OPS for each active lane by its family and
+    branch, plus the shadow rays' triangle tests as needed_work counts
+    them."""
+    from mitsuba_tpu_torch.accel import shade_kernel as sk
+    n = packed.shape[1]
+    act = packed[sk.I_ACT] > 0.5
+    n_act = int(act.sum())
+    mtype = packed[sk.I_MAT + 12]
+    fr = sk._front(packed, bounce, SHADE_DEPTH)
+    both_up = (fr.wi[2] > 0) & (fr.wo[2] > 0)        # the eval branch runs
+    so, sd, smint, smaxt, live = sk.shadow_rays(packed, bounce, SHADE_DEPTH)
+    n_live = int(live.sum())
+    ops = SHADE_KERNEL_OPS["common"] * n_act
+    ops += SHADE_KERNEL_OPS["shadow setup"] * n_live
+    if bounce + 2 >= rr_depth:
+        ops += SHADE_KERNEL_OPS["roulette"] * n_act
+    for fam, k in SHADE_KERNEL_OPS["eval"].items():
+        ops += k * int((act & both_up & (mtype == fam)).sum())
+    for fam, k in SHADE_KERNEL_OPS["sample"].items():
+        ops += k * int((act & (mtype == fam)).sum())
+    tests, trace_ops, table_bytes = needed_work(scene, so, sd, smint, smaxt,
+                                                live, True)
+    ops += trace_ops
+    n_bytes = (n_act * (4 * (SHADE_ROWS_IN - 1) + 8) + n_live * 4
+               + (n - n_act) * 4 * SHADE_ROWS_DEAD
+               + n * 4 * SHADE_ROWS_OUT + table_bytes)
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
+    out = {"bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+    print(f"[bound] {label}: {out['bound_ms']:.5g} ms by {out['bound_by']} "
+          f"({n_bytes} bytes, {n_act} of {n} lanes active; {ops} fp32 ops, "
+          f"{trace_ops} of them in {tests} triangle tests of "
+          f"{n_live} shadow rays) ({card})", flush=True)
+    return out
+
+
+def shade_phases(card):
+    """Phases 9 and 10: the fused shade kernel against shade_plain lane by
+    lane, then its path through render() against the eager tail. Returns
+    the kernel's entry of the kernels line."""
+    from mitsuba_tpu_torch.accel import megakernel as mk
+    from mitsuba_tpu_torch.accel import shade_kernel as sk
+    from mitsuba_tpu_torch.accel import trace
+    from mitsuba_tpu_torch.film.film import Film
+    from mitsuba_tpu_torch.integrator.path import PathTracer, initial_state
+    from mitsuba_tpu_torch.render import render_fn
+
+    # ---- 9. shade kernel vs shade_plain, 65,536 lanes ----------------
+    scene, cam = four_materials(CORNELL_RES)
+    print(f"[shade] four-material scene: {scene.n_tris} triangles, "
+          f"{scene.woop_clusters.shape[0]} clusters", flush=True)
+    pix = torch.arange(CORNELL_RES ** 2, dtype=torch.int32, device=DEV)
+    samp = torch.zeros_like(pix)
+    err, timing = 0.0, {}
+    # the scene, then the same with every material behind the two-sided
+    # adapter (timed on the first only)
+    scene_2s = four_materials(CORNELL_RES, two_sided=True)[0]
+    for sc in (scene, scene_2s):
+        two_sided = sc is scene_2s
+        tracer = PathTracer(max_depth=SHADE_DEPTH).specialized_for(sc)
+        st = initial_state(*mk.primary_rays(cam, 0, pix, 0))
+        for b in range(max(SHADE_BOUNCES) + 1):
+            if b in SHADE_BOUNCES:
+                label = f"shade, bounce {b}" + ", two-sided" * two_sided
+                packed = tracer.shade_inputs(sc, st, 0, pix, samp, b)
+                run = lambda: sk.run_shade(sc, packed, pix, samp, 0, b,
+                                           tracer.rr_depth, SHADE_DEPTH)
+                plain = lambda: sk.shade_plain(sc, packed, pix, samp, 0, b,
+                                               tracer.rr_depth, SHADE_DEPTH)
+                err = max(err, compare_rows(label, run(), plain()))
+                act = packed[sk.I_ACT] > 0.5
+                share = sk.shadow_rays(packed, b, SHADE_DEPTH)[4]
+                flips = ((sk._front(packed, b, SHADE_DEPTH).fsign < 0)
+                         & (packed[sk.I_HIT] > 0.5))
+                print(f"[shade] {label}: {act.float().mean().item():.4f} of "
+                      f"lanes active, {share.float().mean().item():.4f} "
+                      f"trace a shadow ray, {flips.float().mean().item():.4f}"
+                      f" hit a surface from behind and flip", flush=True)
+                if two_sided:
+                    check(bool(flips.any()), f"{label}: no lane flipped")
+                else:
+                    timing[b] = {"ms": time_ms(run, 100),
+                                 "plain_ms": time_ms(plain, 5, warmup=1),
+                                 **shade_bound(label, sc, packed, b,
+                                               tracer.rr_depth, card)}
+                    print(f"[shade] {label}: kernel "
+                          f"{timing[b]['ms'] * 1e3:.2f} us/launch, plain "
+                          f"{timing[b]['plain_ms']:.3f} ms ({card})",
+                          flush=True)
+            st = tracer.bounce(sc, st, 0, pix, samp, b)[0]
+    del scene_2s
+
+    # ---- 10. the fused path through render(), against the eager tail ----
+    film = Film(CORNELL_RES, CORNELL_RES, "box")
+    results = {}
+    for mode in ("off", "on"):
+        integ = PathTracer(max_depth=SHADE_DEPTH, fused_shade=mode)
+        render_fn(scene, cam, film, integ, spp=1, seed=0, device=DEV)
+        torch.cuda.synchronize()                            # (warm-up)
+        trace.reset_launches()
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        img, n = render_fn(scene, cam, film, integ, spp=SPP, seed=0,
+                           device=DEV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**trace.LAUNCHES, **sk.LAUNCHES}
+        results[mode] = (img, int(n), launches)
+        print(f"[fused {mode}] {CORNELL_RES}², {SHADE_DEPTH} bounces, {SPP} "
+              f"spp: {wall:.3f} s, {int(n)} rays, {int(n) / wall:.4g} rays/s,"
+              f" mean {img.mean().item():.5f}, launches {launches} ({card})",
+              flush=True)
+        check(bool(torch.isfinite(img).all()), f"fused {mode}: NaN/Inf")
+        profile_pass(scene, cam, film, integ, card)
+    (img_off, n_off, l_off), (img_on, n_on, l_on) = results["off"], \
+        results["on"]
+    check(l_on["shade"] == SHADE_DEPTH * SPP,
+          f"shade launched {l_on['shade']} times, want {SHADE_DEPTH * SPP}")
+    check(l_off["shade"] == 0 and l_on["trace_any"] == 0,
+          "the eager tail launched the shade kernel or the fused tail a "
+          "shadow trace")
+    image_rule(img_on, img_off, f"fused on vs off, {SPP} spp")
+    check(abs(n_on - n_off) <= 1e-4 * n_off,
+          f"ray counts {n_on} (on) vs {n_off} (off)")
+    b0 = timing[SHADE_BOUNCES[0]]
+    return {"name": "shade", "route": "cuda",
+            "source": "mitsuba_tpu_torch/csrc/shade.cu",
+            "replaces": "mitsuba_tpu/accel/shade_kernel.py:75",
+            "launches": l_on["shade"], "max_abs_err": err,
+            **b0, "library_ms": None}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     from mitsuba_tpu_torch.accel import megakernel as mk
+    from mitsuba_tpu_torch.accel import shade_kernel as sk
     from mitsuba_tpu_torch.accel import trace
     from mitsuba_tpu_torch.core import transform as tf
     from mitsuba_tpu_torch.film.film import Film
@@ -446,8 +656,9 @@ def main():
 
     # ---- 1. build (one nvcc per source, started together) -------------
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(trace.build), pool.submit(mk.build)]
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(trace.build), pool.submit(mk.build),
+                  pool.submit(sk.build)]
         builds = [b.result() for b in builds]
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
     for lib, report in builds:
@@ -691,6 +902,8 @@ def main():
         "replaces": "mitsuba_tpu/accel/megakernel.py:2478",
         "launches": persist_launches, "max_abs_err": persist_err,
         **persist_row, "library_ms": None})
+
+    kernels.append(shade_phases(card))
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -17,6 +17,11 @@ wavefront bounce, PathTracer(accel="plain").bounce (integrator/path.py):
 runs path_plain for every sample index and sums L and the counts, which is
 the persistent kernel's per-pixel estimate.
 
+The module also holds the plain versions of the JAX megakernel's device
+BSDF helpers for the diffuse, conductor, rough-conductor and dielectric
+families (bsdf_eval_pdf, bsdf_sample), which the fused shade kernel
+computes (accel/shade_kernel.py, csrc/bsdf_common.cuh).
+
 The TPU layouts that exist for VMEM and SMEM (the transposed material
 table, the adaptive-tc Woop repack, the [S, B] sublane blocks) are
 dropped: the tables are row-major, one row per triangle, material or
@@ -27,14 +32,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..integrator.path import PathTracer, initial_state
+from ..core.warp import INV_PI, square_to_cosine_hemisphere
 from ..render import sample_camera
-from ..scene.scene import MAT_ROUGH_PLASTIC, SceneData
+from ..scene.scene import (MAT_CONDUCTOR, MAT_DIELECTRIC, MAT_DIFFUSE,
+                           MAT_ROUGH_CONDUCTOR, MAT_ROUGH_PLASTIC, SceneData)
 from . import trace
 
 # RNG dims (mirror integrator/common.py)
@@ -212,7 +220,8 @@ def primary_rays(camera, seed, pixel, samp):
 # ---------------------------------------------------------------------------
 
 def _plain(max_depth, rr_depth):
-    return PathTracer(max_depth=max_depth, rr_depth=rr_depth, accel="plain")
+    return PathTracer(max_depth=max_depth, rr_depth=rr_depth, accel="plain",
+                      families=(MAT_DIFFUSE,))
 
 
 def bounce_plain(tables: MegaTables, rr_depth, max_depth, state, pixel,
@@ -268,6 +277,198 @@ def persistent_plain(tables: MegaTables, rr_depth, max_depth, spp, camera,
         torch.full_like(state[17:18], float(spp)),
         lsum, counts[0:1], counts])
     return torch.where(live, rows, state)
+
+
+# ---------------------------------------------------------------------------
+# device BSDF helpers, plain versions (families 0-3)
+# ---------------------------------------------------------------------------
+# The JAX megakernel's in-kernel BSDF dispatch (_bsdf_eval_pdf :1744,
+# _bsdf_sample :1951 and their helpers _ggx_d, _ggx_g1, _fresnel_cond)
+# for the diffuse, conductor, isotropic-GGX rough-conductor and smooth-
+# dielectric families, over per-lane rows: `mat` holds material columns
+# 0..12 as rows ([>= 13, N], row 12 the type code), directions are split
+# into their x, y, z rows. The fused shade kernel (accel/shade_kernel.py,
+# csrc/bsdf_common.cuh) computes these forms, op for op; they differ from
+# bsdf.py's in rounding only (the rough conductor's weight is F·G1(wo)
+# instead of f/pdf).
+
+SHADE_FAMILIES = frozenset({MAT_DIFFUSE, MAT_CONDUCTOR, MAT_ROUGH_CONDUCTOR,
+                            MAT_DIELECTRIC})
+
+
+def normalize3(x, y, z):
+    inv = torch.rsqrt(torch.clamp(x * x + y * y + z * z, min=1e-30))
+    return x * inv, y * inv, z * inv
+
+
+def ggx_d(hx, hy, hz, a):
+    """Isotropic GGX D(h) (_ggx_d), zero below the horizon."""
+    qx, qy = hx / a, hy / a
+    t = qx * qx + qy * qy + hz * hz
+    d = 1.0 / (math.pi * a * a * torch.clamp(t * t, min=1e-12))
+    return torch.where(hz > 0.0, d, 0.0)
+
+
+def ggx_g1(vx, vy, vz, hx, hy, hz, a):
+    """Isotropic GGX Smith G1(v, h) (_ggx_g1)."""
+    vz2 = vz * vz
+    tan2 = torch.clamp(1.0 - vz2, min=0.0) / torch.clamp(vz2, min=1e-12)
+    g = 2.0 / (1.0 + torch.sqrt(1.0 + a * a * tan2))
+    g = torch.where(tan2 < 1e-12, 1.0, g)
+    back = (vx * hx + vy * hy + vz * hz) * vz <= 0.0
+    return torch.where(back, 0.0, g)
+
+
+def fresnel_cond(mat, ci):
+    """Exact conductor Fresnel per channel (_fresnel_cond): eta in rows
+    0..2, k in rows 3..5; ci >= 0. Returns three rows."""
+    c2 = ci * ci
+    s2 = 1.0 - c2
+    out = []
+    for ch in range(3):
+        e2, k2 = mat[ch] * mat[ch], mat[3 + ch] * mat[3 + ch]
+        t0 = e2 - k2 - s2
+        a2pb2 = torch.sqrt(torch.clamp(t0 * t0 + 4.0 * e2 * k2, min=1e-12))
+        t1 = a2pb2 + c2
+        a = torch.sqrt(torch.clamp(0.5 * (a2pb2 + t0), min=1e-12))
+        t2 = 2.0 * a * ci
+        rs = (t1 - t2) / torch.clamp(t1 + t2, min=1e-6)
+        t3 = c2 * a2pb2 + s2 * s2
+        t4 = t2 * s2
+        rp = rs * (t3 - t4) / torch.clamp(t3 + t4, min=1e-6)
+        out.append(0.5 * (rp + rs))
+    return out
+
+
+def bsdf_eval_pdf(mat, wix, wiy, wiz, wox, woy, woz):
+    """f·cosθo (three rows) and the solid-angle pdf of the smooth lobes
+    (_bsdf_eval_pdf): diffuse and rough conductor; the delta families
+    give 0."""
+    mtype = mat[12]
+    zero = torch.zeros_like(wix)
+    valid = (wiz > 0.0) & (woz > 0.0)
+    sel = (mtype == float(MAT_DIFFUSE)) & valid
+    f = [torch.where(sel, mat[ch] * INV_PI * woz, zero) for ch in range(3)]
+    pdf = torch.where(sel, woz * INV_PI, zero)
+    sel = (mtype == float(MAT_ROUGH_CONDUCTOR)) & valid
+    hx, hy, hz = normalize3(wix + wox, wiy + woy, wiz + woz)
+    a = torch.clamp(mat[9], min=1e-4)
+    d_ndf = ggx_d(hx, hy, hz, a)
+    g1i = ggx_g1(wix, wiy, wiz, hx, hy, hz, a)
+    g1o = ggx_g1(wox, woy, woz, hx, hy, hz, a)
+    wim = wix * hx + wiy * hy + wiz * hz
+    fr = fresnel_cond(mat, torch.abs(wim))
+    base = d_ndf * g1i * g1o / torch.clamp(4.0 * wiz, min=1e-7)
+    f = [torch.where(sel, fr[ch] * mat[6 + ch] * base, f[ch])
+         for ch in range(3)]
+    pdf_h = g1i * torch.abs(wim) * d_ndf / torch.clamp(wiz, min=1e-12)
+    pdf = torch.where(sel, pdf_h / torch.clamp(
+        4.0 * torch.abs(wox * hx + woy * hy + woz * hz), min=1e-7), pdf)
+    return f[0], f[1], f[2], pdf
+
+
+def bsdf_sample(mat, wix, wiy, wiz, u0, u1, uc):
+    """One BSDF sample (_bsdf_sample): (wo x, y, z, weight r, g, b, pdf,
+    is_delta, eta of the sampled event). u0, u1 drive the 2-D warps, uc
+    the dielectric's reflect/refract pick."""
+    mtype = mat[12]
+    zero = torch.zeros_like(wix)
+    nw = [zero, zero, zero + 1.0]
+    w = [zero, zero, zero]
+    pdf = zero
+    is_delta = torch.zeros_like(wix, dtype=torch.bool)
+    eta = zero + 1.0
+
+    sel = mtype == float(MAT_DIFFUSE)
+    ok = sel & (wiz > 0.0)
+    cos = square_to_cosine_hemisphere(torch.stack([u0, u1], -1)).unbind(-1)
+    nw = [torch.where(sel, cos[j], nw[j]) for j in range(3)]
+    w = [torch.where(sel, torch.where(ok, mat[ch], 0.0), w[ch])
+         for ch in range(3)]
+    pdf = torch.where(sel, torch.where(ok, cos[2] * INV_PI, 0.0), pdf)
+
+    sel = mtype == float(MAT_CONDUCTOR)
+    ok = sel & (wiz > 0.0)
+    fr = fresnel_cond(mat, torch.clamp(wiz, min=0.0))
+    nw = [torch.where(sel, v, nw[j]) for j, v in enumerate((-wix, -wiy, wiz))]
+    w = [torch.where(sel, torch.where(ok, fr[ch] * mat[6 + ch], 0.0), w[ch])
+         for ch in range(3)]
+    pdf = torch.where(sel, ok.to(pdf.dtype), pdf)
+    is_delta = is_delta | ok
+
+    # GGX visible normals (Heitz 2018), as core/microfacet.py
+    sel = mtype == float(MAT_ROUGH_CONDUCTOR)
+    a = torch.clamp(mat[9], min=1e-4)
+    vx, vy, vz = normalize3(a * wix, a * wiy, wiz)
+    lensq = vx * vx + vy * vy
+    inv_len = torch.rsqrt(torch.clamp(lensq, min=1e-20))
+    big = lensq > 1e-20
+    t1x = torch.where(big, -vy * inv_len, 1.0)
+    t1y = torch.where(big, vx * inv_len, 0.0)
+    t1z = zero
+    t2x = vy * t1z - vz * t1y
+    t2y = vz * t1x - vx * t1z
+    t2z = vx * t1y - vy * t1x
+    rr = torch.sqrt(torch.clamp(u0, min=0.0))
+    ph = 2.0 * math.pi * u1
+    p1 = rr * torch.cos(ph)
+    p2 = rr * torch.sin(ph)
+    ss = 0.5 * (1.0 + vz)
+    p2 = (1.0 - ss) * torch.sqrt(torch.clamp(1.0 - p1 * p1, min=0.0)) \
+        + ss * p2
+    p3 = torch.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0))
+    mx, my, mz = normalize3(a * (p1 * t1x + p2 * t2x + p3 * vx),
+                            a * (p1 * t1y + p2 * t2y + p3 * vy),
+                            torch.clamp(p1 * t1z + p2 * t2z + p3 * vz,
+                                        min=1e-6))
+    wim = wix * mx + wiy * my + wiz * mz
+    rx = 2.0 * wim * mx - wix
+    ry = 2.0 * wim * my - wiy
+    rz = 2.0 * wim * mz - wiz
+    d_ndf = ggx_d(mx, my, mz, a)
+    g1i = ggx_g1(wix, wiy, wiz, mx, my, mz, a)
+    g1o = ggx_g1(rx, ry, rz, mx, my, mz, a)
+    pdf_h = g1i * torch.abs(wim) * d_ndf / torch.clamp(wiz, min=1e-12)
+    pdf_c = pdf_h / torch.clamp(4.0 * torch.abs(rx * mx + ry * my + rz * mz),
+                                min=1e-7)
+    fr = fresnel_cond(mat, torch.abs(wim))
+    ok = sel & (wiz > 1e-7) & (rz > 1e-7) & (pdf_c > 0.0)
+    nw = [torch.where(sel, v, nw[j]) for j, v in enumerate((rx, ry, rz))]
+    w = [torch.where(sel, torch.where(ok, fr[ch] * mat[6 + ch] * g1o, 0.0),
+                     w[ch]) for ch in range(3)]
+    pdf = torch.where(sel, torch.where(ok, pdf_c, 0.0), pdf)
+
+    # smooth glass: delta reflect/refract, two-sided
+    sel = mtype == float(MAT_DIELECTRIC)
+    eta_r = torch.clamp(mat[0], min=1e-3)
+    outside = wiz >= 0.0
+    eta_it = torch.where(outside, eta_r, 1.0 / eta_r)
+    eta_ti = 1.0 / eta_it
+    cos_i = torch.abs(wiz)
+    sin_t2 = eta_ti * eta_ti * (1.0 - cos_i * cos_i)
+    tir = sin_t2 >= 1.0
+    cos_t = torch.where(tir, 0.0,
+                        torch.sqrt(torch.clamp(1.0 - sin_t2, min=1e-12)))
+    rs = (cos_i - eta_it * cos_t) / torch.clamp(cos_i + eta_it * cos_t,
+                                                min=1e-4)
+    rp = (eta_it * cos_i - cos_t) / torch.clamp(eta_it * cos_i + cos_t,
+                                                min=1e-4)
+    f = torch.where(tir, 1.0, 0.5 * (rs * rs + rp * rp))
+    cos_theta_t = torch.where(tir, 0.0, torch.where(outside, -cos_t, cos_t))
+    pick_r = uc < f
+    scale = torch.where(cos_theta_t < 0.0, 1.0 / eta_r, eta_r)
+    refl = (-wix, -wiy, wiz)
+    refr = (-scale * wix, -scale * wiy, cos_theta_t)
+    nw = [torch.where(sel, torch.where(pick_r, refl[j], refr[j]), nw[j])
+          for j in range(3)]
+    t_fac = eta_ti * eta_ti
+    w = [torch.where(sel, torch.where(pick_r, mat[1 + ch],
+                                      mat[4 + ch] * t_fac), w[ch])
+         for ch in range(3)]
+    pdf = torch.where(sel, torch.where(pick_r, f, 1.0 - f), pdf)
+    is_delta = is_delta | sel
+    eta = torch.where(sel & ~pick_r, eta_it, eta)
+    return (*nw, *w, pdf, is_delta, eta)
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .bsdf.bsdf import PORTED_FAMILIES
 from .core.distribution import Discrete1D
 from .device import resolve_device
 from .scene import scene as S
@@ -17,11 +18,13 @@ from .scene import scene as S
 def _check_supported(a: dict):
     """Reject scenes that use what the port does not implement."""
     problems = []
-    if np.any(np.asarray(a["mat_type"]) != S.MAT_DIFFUSE):
-        problems.append("non-diffuse materials")
+    fams = set(np.unique(np.asarray(a["mat_type"])).tolist()) - set(
+        PORTED_FAMILIES)
+    if fams:
+        problems.append(f"BSDF families {sorted(fams)}")
     params = np.asarray(a["mat_params"])
-    if np.any(params[:, [13, 14, 16]] != -1) or np.any(params[:, [15, 17]]):
-        problems.append("textures, normal/bump maps or two-sided materials")
+    if np.any(params[:, [13, 14, 16]] != -1) or np.any(params[:, 17]):
+        problems.append("textures or normal/bump maps")
     if np.any(np.asarray(a["em_type"]) != S.EM_AREA):
         problems.append("non-area emitters")
     if int(np.asarray(a["env_id"])) >= 0 or bool(np.asarray(a["has_medium"])):

@@ -62,3 +62,18 @@ class Frame:
     def to_world(frame, v: torch.Tensor) -> torch.Tensor:
         s, t, n = frame
         return s * v[..., 0:1] + t * v[..., 1:2] + n * v[..., 2:3]
+
+
+def reflect(wi: torch.Tensor) -> torch.Tensor:
+    """Mirror reflection about +z in the local frame (ref: conductor.cpp
+    `reflect`)."""
+    return torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], dim=-1)
+
+
+def refract_local(wi: torch.Tensor, eta, cos_theta_t) -> torch.Tensor:
+    """Local-frame refraction given the transmitted cosine (ref: util.cpp
+    refract / dielectric.cpp). eta = int_ior/ext_ior; cos_theta_t carries
+    the sign of the transmitted side."""
+    scale = torch.where(cos_theta_t < 0, 1.0 / eta, eta)
+    return torch.stack([-scale * wi[..., 0], -scale * wi[..., 1],
+                        cos_theta_t], dim=-1)

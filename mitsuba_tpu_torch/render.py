@@ -38,6 +38,9 @@ def render_fn(scene: SceneData, camera, film: Film, integrator, spp: int,
     px = torch.arange(h * w, dtype=torch.int64, device=scene.device)
     accum = film.new_accumulator(scene.device)
     n_rays = torch.zeros((), dtype=torch.int64, device=scene.device)
+    specialize = getattr(integrator, "specialized_for", None)
+    if specialize is not None:      # read the scene's families once
+        integrator = specialize(scene)
     for s in range(spp):
         pos, o, d = sample_camera(camera, w, seed, px, s)
         radiance, rays = integrator.li_stats(scene, o, d, seed, px, s)

@@ -1,6 +1,7 @@
 """Scene builder: declarative scene description → compiled SceneData on one
-device (port of mitsuba_tpu/scene/builder.py, the part the Cornell path
-uses: triangle meshes, diffuse materials, area emitters).
+device (port of mitsuba_tpu/scene/builder.py, the part the port renders:
+triangle meshes, the diffuse, conductor, rough-conductor and dielectric
+materials with the two-sided adapter, area emitters).
 
 All transform work is host-side float64; device tensors are float32, as in
 the JAX package, so both builders produce the same arrays. A description
@@ -28,34 +29,67 @@ from .shapes import Mesh
 
 @dataclass
 class Material:
-    """BSDF description. The port compiles kind="diffuse" only."""
+    """BSDF description. The port compiles the kinds "diffuse",
+    "conductor", "roughconductor" and "dielectric", each optionally
+    two-sided; parameters and defaults are the JAX builder's (each
+    plugin's Properties defaults)."""
     kind: str = "diffuse"
-    albedo: Sequence[float] = (0.5, 0.5, 0.5)
-    alpha: float = 0.1              # unused by diffuse, kept in the row
+    albedo: Sequence[float] = (0.5, 0.5, 0.5)       # diffuse
+    eta: Sequence[float] | float = (0.2004, 0.9240, 1.1022)  # conductor (Cu)
+    k: Sequence[float] = (3.9129, 2.4528, 2.1421)
+    specular_reflectance: Sequence[float] = (1.0, 1.0, 1.0)
+    specular_transmittance: Sequence[float] = (1.0, 1.0, 1.0)
+    alpha: float = 0.1
+    alpha_v: Optional[float] = None
+    distribution: str = "ggx"                         # "beckmann"|"ggx"
+    int_ior: float = 1.5046                           # dielectric (BK7)
+    ext_ior: float = 1.000277                         # air
     albedo_texture: int = -1
     roughness_texture: int = -1
-    two_sided: bool = False
+    two_sided: bool = False                           # twosided adapter
     normal_texture: int = -1
     bump_scale: float = 0.0
 
+    _KINDS = {"diffuse": S.MAT_DIFFUSE, "conductor": S.MAT_CONDUCTOR,
+              "roughconductor": S.MAT_ROUGH_CONDUCTOR,
+              "dielectric": S.MAT_DIELECTRIC}
+
     def compile(self):
-        """→ (type code, param row [24] f32, texture slots [2] i32)."""
-        if self.kind != "diffuse":
+        """→ (type code, param row [24] f32, texture slots [2] i32), the
+        JAX builder's row."""
+        if self.kind not in self._KINDS:
             raise NotImplementedError(
-                f"material kind {self.kind!r}: the port has only 'diffuse'")
+                f"material kind {self.kind!r}: the port has "
+                f"{sorted(self._KINDS)}")
         for name, unset in (("albedo_texture", -1), ("roughness_texture", -1),
-                            ("normal_texture", -1), ("two_sided", False),
-                            ("bump_scale", 0.0)):
+                            ("normal_texture", -1), ("bump_scale", 0.0)):
             if getattr(self, name) != unset:
                 raise NotImplementedError(
-                    f"material {name}: textures, normal/bump maps and the "
-                    "two-sided adapter are not ported")
+                    f"material {name}: textures and normal/bump maps are "
+                    "not ported")
+        code = self._KINDS[self.kind]
         p = np.zeros(S.N_MAT_PARAMS, np.float32)
-        p[0:3] = self.albedo
-        p[9] = self.alpha
-        p[12] = float(S.MAT_DIFFUSE)
-        p[13], p[14], p[16] = -1.0, -1.0, -1.0
-        return S.MAT_DIFFUSE, p, np.array([-1, -1], np.int32)
+        dist = 1.0 if self.distribution == "ggx" else 0.0
+        av = self.alpha if self.alpha_v is None else self.alpha_v
+        if code == S.MAT_DIFFUSE:
+            p[0:3] = self.albedo
+            p[9] = self.alpha
+        elif code in (S.MAT_CONDUCTOR, S.MAT_ROUGH_CONDUCTOR):
+            p[0:3] = self.eta if not np.isscalar(self.eta) else [self.eta] * 3
+            p[3:6] = self.k
+            p[6:9] = self.specular_reflectance
+            p[9], p[10], p[11] = self.alpha, av, dist
+        else:
+            p[0] = self.int_ior / self.ext_ior
+            p[1:4] = self.specular_reflectance
+            p[4:7] = self.specular_transmittance
+            p[9], p[10], p[11] = self.alpha, av, dist
+        # dispatch metadata packed into the row (scene.py layout)
+        p[12] = float(code)
+        p[13], p[14] = -1.0, -1.0
+        p[15] = float(self.two_sided)
+        p[16] = -1.0
+        return code, p, np.array([-1, -1], np.int32)
 
 
 @dataclass

@@ -11,8 +11,8 @@ import torch
 from ..core.distribution import Discrete1D
 
 # Material type codes (bsdf dispatch table, ref: EBSDFType bsdf.h:233).
-# The port's BSDF module implements MAT_DIFFUSE only; compile_scene rejects
-# the others.
+# The port's BSDF module implements codes 0-3 (bsdf.PORTED_FAMILIES);
+# compile_scene rejects the others.
 MAT_DIFFUSE = 0
 MAT_CONDUCTOR = 1
 MAT_ROUGH_CONDUCTOR = 2
@@ -45,8 +45,12 @@ EM_DIRECTIONAL = 4
 EM_SPOT = 5
 
 # mat_params[M, 24] row layout (see mitsuba_tpu/scene/scene.py): diffuse
-# albedo in [0:3]; [12] type code, [13] albedo-tex id, [14] roughness-tex
-# id, [15] two-sided flag, [16] normal/bump-map tex id, [17] bump scale.
+# albedo in [0:3]; conductors eta [0:3], k [3:6], specular reflectance
+# [6:9], alpha [9], alpha_v [10], distribution [11] (0 Beckmann, 1 GGX);
+# dielectric int/ext ior ratio [0], specular reflectance [1:4] and
+# transmittance [4:7]; [12] type code, [13] albedo-tex id, [14]
+# roughness-tex id, [15] two-sided flag, [16] normal/bump-map tex id, [17]
+# bump scale.
 N_MAT_PARAMS = 24
 N_MAT_TEX = 2
 

@@ -117,19 +117,19 @@ def test_scene_from_numpy_round_trip(scenes):
 def test_scene_from_numpy_rejects_unported():
     arrays = _numpy_fields(jcompile(jpresets.cornell_box()))
     arrays["mat_type"] = arrays["mat_type"].copy()
-    arrays["mat_type"][1] = 1                 # conductor
-    with pytest.raises(NotImplementedError, match="non-diffuse"):
+    arrays["mat_type"][1] = 4                 # plastic
+    with pytest.raises(NotImplementedError, match=r"BSDF families \[4\]"):
         scene_from_numpy(arrays, device="cpu")
 
 
 def test_compile_scene_rejects_unported():
     d = tpresets.cornell_box()
-    d.add_material(kind="conductor")
-    with pytest.raises(NotImplementedError, match="conductor"):
+    d.add_material(kind="plastic")
+    with pytest.raises(NotImplementedError, match="plastic"):
         tcompile(d, device="cpu")
     d = tpresets.cornell_box()
-    d.add_material(kind="diffuse", two_sided=True)
-    with pytest.raises(NotImplementedError, match="two_sided"):
+    d.add_material(kind="diffuse", albedo_texture=0)
+    with pytest.raises(NotImplementedError, match="albedo_texture"):
         tcompile(d, device="cpu")
     with pytest.raises(NotImplementedError, match="tent"):
         TFilm(8, 8, "tent")
