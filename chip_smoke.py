@@ -40,11 +40,32 @@ Phases, each of which must pass or the script exits non-zero:
  10. that scene's path through render() with PathTracer(max_depth=6,
      fused_shade="on") at 256², 64 spp (counted) against fused_shade=
      "off" under the image rule, with both rays/s and a 1-spp profile of
-     each.
+     each; then the same scene on the megakernels: mega_path against
+     path_plain lane by lane, and render_persistent at 64 spp against
+     the eager image;
+ 11. the leaf-families scene (every leaf BSDF family, a two-sided pane,
+     smooth spheres; 256², 6 bounces): the trace kernel against its plain
+     version on its camera and shadow rays; mega_bounce against its
+     plain version lane by lane at bounce 0 and from the state after 3
+     plain bounces, then one pass bounce by bounce (counted);
+ 12. render() with MegaPathTracer (mega_path, counted) at 8 spp against
+     the eager render, and mega_path against path_plain lane by lane;
+ 13. render_persistent at 8 spp against the eager image, then one 256-spp
+     launch of mega_persistent (counted) timed by CUDA events beside its
+     bound, and the kernel against persistent_plain on every 16th pixel
+     at 16 spp;
+ 14. the shade kernel against shade_plain at bounces 0 and 3 with rough
+     plastic swapped for plastic and every material two-sided, then
+     one-sided (timed), with the share of lanes tracing a shadow ray;
+ 15. that one-sided scene's eager path with fused_shade "off" and "on"
+     at 64 spp (counted), both rays/s and a 1-spp profile of each, the
+     images under the image rule, and render_persistent against them.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 reports them, and {"ok": true, "device": {...}}; the line before them lists
-every ported kernel with its launches, error and times. Exits non-zero
+every ported kernel with its launches, error and times on the Cornell box
+(the shade kernel: the four-material scene), and under "leaf_families"
+the same on the leaf-families scene. Exits non-zero
 without a CUDA device, and without the package beside it.
 """
 import concurrent.futures
@@ -81,27 +102,35 @@ BENCH_SEEDS = (1, 2)
 # fp32 operations of one megakernel bounce outside its two traces, counted
 # from csrc/megakernel.cu path_bounce for a lane whose ray hits (add, sub,
 # mul, div, sqrt, rsqrt, min, max, abs, cos, sin and int->float each 1;
-# compares and integer RNG work not counted)
+# compares and integer RNG work not counted); "diffuse f" and the diffuse
+# sample's own share of "BSDF sample, next ray" are the BSDF's, charged
+# per family from family_ops instead
 SHADE_OPS = {"ray mint": 7, "hit record (normal, point)": 39,
              "emitter hit + MIS": 28, "shading frame": 16,
              "wi to local": 18, "RNG floats (NEE)": 6,
              "emitter sample": 55, "wo to local": 15, "diffuse f": 7,
              "shadow origin, mint, maxt": 27, "NEE MIS + L": 17,
              "BSDF sample, next ray": 62, "Russian roulette": 11}
+TWO_SIDED_OPS = 3           # the flip's three multiplies
 CAMERA_OPS = 41             # camera_path: jitter, pinhole ray, normalize
 # the fused shade phases: the four-material scene of
 # tests/test_pallas_tpu.py:160-183 at 256², 6 bounces, 64 spp
 SHADE_DEPTH = 6
 SHADE_BOUNCES = (0, 3)
 # fp32 operations of the fused shade kernel for one active lane, counted
-# from csrc/shade.cu and csrc/bsdf_common.cuh as SHADE_OPS is: the work
-# every active lane does, the BSDF eval toward the light by family (only
-# where wi and wo are both above the surface), the BSDF sample by family,
-# the shadow ray's origin and range (lanes that trace it) and Russian
-# roulette (bounces past rr_depth)
-SHADE_KERNEL_OPS = {"common": 127, "shadow setup": 8, "roulette": 4,
-                    "eval": {0: 7, 2: 191},
-                    "sample": {0: 18, 1: 104, 2: 262, 3: 38}}
+# from csrc/shade.cu as SHADE_OPS is: the work every active lane does, the
+# shadow ray's origin and range (lanes that trace it) and Russian
+# roulette (bounces past rr_depth); the BSDF's eval and sample come per
+# family from family_ops
+SHADE_KERNEL_OPS = {"common": 127, "shadow setup": 8, "roulette": 4}
+# the leaf-families phases (11-15): 256², 6 bounces
+LEAF_SPP = 8                # render() with MegaPathTracer against eager
+LEAF_PERSIST_SPP = 256      # render_persistent, timed
+LEAF_PLAIN_LANES = 16       # persistent_plain on every 16th pixel ...
+LEAF_PLAIN_SPP = 16         # ... at 16 spp
+LEAF_BOUNCES = (0, 3)
+# families whose eval runs without the both-above-the-surface test
+TRANSMISSIVE = (5, 12)      # rough dielectric, difftrans
 SHADE_ROWS_IN, SHADE_ROWS_OUT = 50, 16
 SHADE_ROWS_DEAD = 11        # act, p, d, L, eta: what an inactive lane reads
 
@@ -365,18 +394,70 @@ def compare_rows(label, k, p):
     return diff.max().item()
 
 
-def bounce_work(scene, state, pix, samp, bounce, seed=0):
-    """needed_work for one bounce of the megakernel: the closest-hit rays
-    of the live lanes and the shadow rays the kernel traces (attempted
-    NEE with the diffuse BSDF nonzero toward the light: wi and wo above
-    the shading normal). Returns a dict of ray counts, ops and table
-    bytes."""
+_COUNTED = {"add", "sub", "mul", "div", "truediv", "rsub", "radd", "rmul",
+            "rtruediv", "neg", "sqrt", "rsqrt", "exp", "log", "sin", "cos",
+            "clamp", "maximum", "minimum", "abs", "floor", "pow", "amax",
+            "reciprocal"}
+
+
+def family_ops(tables):
+    """fp32 operations of each family's eval and sample branch for one
+    lane, counted by running the plain versions of the device helpers
+    (accel/megakernel.py bsdf_eval_pdf, bsdf_sample), which the kernels
+    compute op for op, on one lane of each of the tables' materials
+    under a TorchFunctionMode that counts arithmetic calls (selects and
+    compares not counted; rough dielectric's eval computes both candidate
+    micronormals where the kernel computes one, so its count is ~10
+    over). Returns {family: (eval_ops, sample_ops)}."""
+    from torch.overrides import TorchFunctionMode
+
+    from mitsuba_tpu_torch.accel import megakernel as mk
+
+    class Count(TorchFunctionMode):
+        n = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            name = getattr(func, "__name__", "").strip("_")
+            if name in _COUNTED:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    out = {}
+    for row in tables.mat.cpu():
+        fam = int(row[12])
+        if fam in out:
+            continue
+        m = row[:, None].clone()
+        t = lambda *v: torch.tensor(v, dtype=torch.float32)
+        wo_z = -0.6 if fam in TRANSMISSIVE else 0.6
+        args = (t(0.3), t(0.2), t(0.9), t(-0.2), t(0.5), t(wo_z))
+        with Count():
+            Count.n = 0
+            mk.bsdf_eval_pdf(m, *args, families=(fam,))
+            n_eval = Count.n
+            Count.n = 0
+            mk.bsdf_sample(m, *args[:3], t(0.3), t(0.7), t(0.4),
+                           families=(fam,))
+            out[fam] = (n_eval, Count.n)
+    return out
+
+
+def bounce_work(tables, state, pix, samp, bounce, fam_ops, max_depth,
+                seed=0):
+    """needed_work for one bounce of the megakernel on its plain scene: the
+    closest-hit rays of the live lanes, the shadow rays the kernel traces
+    (attempted NEE with the BSDF nonzero toward the light) and the
+    shading operations of the hits, each charged the common SHADE_OPS
+    plus its family's sample and, where the eval branch runs, its eval.
+    Returns a dict of ray counts, ops and table bytes."""
     from mitsuba_tpu_torch.accel import dense
+    from mitsuba_tpu_torch.accel import megakernel as mk
     from mitsuba_tpu_torch.core import rng
-    from mitsuba_tpu_torch.core.math import SHADOW_EPSILON, dot
+    from mitsuba_tpu_torch.core.math import SHADOW_EPSILON, Frame
     from mitsuba_tpu_torch.emitter.emitter import sample_direct
     from mitsuba_tpu_torch.integrator.common import (
         DIM_NEE_POS, DIM_NEE_SEL, bounce_dim, offset_ray_origin, ray_mint)
+    scene = tables.plain_scene
     o = state[0:3].T.contiguous()
     d = state[3:6].T.contiguous()
     live = state[12] > 0.5
@@ -387,8 +468,23 @@ def bounce_work(scene, state, pix, samp, bounce, seed=0):
                                                            DIM_NEE_SEL), samp),
                        rng.sample_2d(seed, pix, bounce_dim(bounce,
                                                            DIM_NEE_POS), samp))
-    attempted = its.valid & (bounce + 3 <= MAX_DEPTH + 1) & (ds.pdf > 0)
-    traced = attempted & (dot(-d, its.ns) > 0) & (dot(ds.d, its.ns) > 0)
+    attempted = its.valid & (bounce + 3 <= max_depth + 1) & (ds.pdf > 0)
+    mat = tables.mat[its.mat_id.clamp(min=0)].T
+    frame = Frame.from_normal(its.ns)
+    wi, wo = Frame.to_local(frame, -d), Frame.to_local(frame, ds.d)
+    fsign = torch.where((mat[15] > 0.5) & (wi[:, 2] < 0), -1.0, 1.0)
+    *f, _ = mk.bsdf_eval_pdf(mat, wi[:, 0], wi[:, 1], wi[:, 2] * fsign,
+                             wo[:, 0], wo[:, 1], wo[:, 2] * fsign)
+    traced = attempted & ((f[0] > 0) | (f[1] > 0) | (f[2] > 0))
+    both_up = (wi[:, 2] * fsign > 0) & (wo[:, 2] * fsign > 0)
+    common = (sum(SHADE_OPS.values()) - SHADE_OPS["diffuse f"]
+              - fam_ops[0][1] + TWO_SIDED_OPS) if 0 in fam_ops else \
+        sum(SHADE_OPS.values()) - SHADE_OPS["diffuse f"] + TWO_SIDED_OPS
+    shade_ops = common * int(its.valid.sum())
+    for fam, (n_eval, n_sample) in fam_ops.items():
+        hit_f = its.valid & (mat[12] == fam)
+        runs = attempted & hit_f & (both_up | (fam in TRANSMISSIVE))
+        shade_ops += n_sample * int(hit_f.sum()) + n_eval * int(runs.sum())
     so = offset_ray_origin(its.p, its.ng, ds.d)
     c_tests, c_ops, c_bytes = needed_work(scene, o, d, ray_mint(o), maxt,
                                           live, False)
@@ -397,19 +493,19 @@ def bounce_work(scene, state, pix, samp, bounce, seed=0):
         traced, True)
     return {"trace": int(live.sum()), "hit": int(its.valid.sum()),
             "shadow": int(attempted.sum()), "c_ops": c_ops, "s_ops": s_ops,
-            "tests": c_tests + s_tests, "table_bytes": max(c_bytes, s_bytes)}
+            "shade_ops": shade_ops, "tests": c_tests + s_tests,
+            "table_bytes": max(c_bytes, s_bytes)}
 
 
 def mega_bound(label, work, n_trace, n_shadow, n_paths, lanes, rows_in,
                rows_out, tables, card):
     """The card's least time for a megakernel launch that traced n_trace
     closest-hit rays, attempted n_shadow shadow rays and started n_paths
-    camera paths: fp32 ops, the triangle tests' per ray as `work` (a
-    sample of this run's rays, bounce_work) counts them, plus SHADE_OPS
-    per hit and CAMERA_OPS per path, over 67 TFLOP/s; and the bytes, the
-    tables once and the lane state in and out, over 3.35 TB/s."""
-    shade = sum(SHADE_OPS.values())
-    ops = (n_trace * (work["c_ops"] + work["hit"] * shade) / work["trace"]
+    camera paths: fp32 ops, the triangle tests' and the shading's per ray
+    as `work` (a sample of this run's rays, bounce_work) counts them, plus
+    CAMERA_OPS per path, over 67 TFLOP/s; and the bytes, the tables once
+    and the lane state in and out, over 3.35 TB/s."""
+    ops = (n_trace * (work["c_ops"] + work["shade_ops"]) / work["trace"]
            + n_shadow * work["s_ops"] / max(work["shadow"], 1)
            + n_paths * CAMERA_OPS)
     table_bytes = (work["table_bytes"]
@@ -425,12 +521,28 @@ def mega_bound(label, work, n_trace, n_shadow, n_paths, lanes, rows_in,
     print(f"[bound] {label}: {out['bound_ms']:.5g} ms by {out['bound_by']} "
           f"({ops:.4g} fp32 ops: {n_trace} traced rays x "
           f"{work['c_ops'] / work['trace']:.1f} test ops, "
-          f"{work['hit'] / work['trace']:.4f} hits per ray x {shade} "
-          f"shading ops, {n_shadow} shadow attempts x "
+          f"{work['hit'] / work['trace']:.4f} hits per ray, "
+          f"{work['shade_ops'] / max(work['hit'], 1):.1f} shading ops per "
+          f"hit, {n_shadow} shadow attempts x "
           f"{work['s_ops'] / max(work['shadow'], 1):.1f} test ops, "
           f"{n_paths} paths x {CAMERA_OPS} camera ops; {n_bytes} bytes) "
           f"({card})", flush=True)
     return out
+
+
+def pass_work(tables, st0, pix, samp, max_depth):
+    """bounce_work over one plain sample pass from st0: the per-bounce
+    works and their sum (table bytes: the largest)."""
+    from mitsuba_tpu_torch.accel import megakernel as mk
+    fam_ops = family_ops(tables)
+    works, st = [], st0
+    for b in range(max_depth):
+        works.append(bounce_work(tables, st, pix, samp, b, fam_ops,
+                                 max_depth))
+        st = mk.bounce_plain(tables, 5, max_depth, st, pix, samp, 0, b)[:16]
+    total = {key: sum(w[key] for w in works) for key in works[0]}
+    total["table_bytes"] = max(w["table_bytes"] for w in works)
+    return works, total
 
 
 def events_ms(fn):
@@ -476,6 +588,81 @@ def four_materials_desc(desc_cls, tf, shapes, sphere=(16, 32),
     return d
 
 
+def leaf_families_desc(desc_cls, tf, shapes, sphere=(12, 24),
+                       rough_plastic=True, two_sided=False):
+    """The leaf-families scene through a builder API (desc_cls, tf and
+    shapes as for four_materials_desc), from the recipes of
+    tests/test_mega_tpu.py:236-303, :530-612 and :752-828: a diffuse
+    floor; nine spheres (scale 0.6) of rough conductor (GGX α 0.2),
+    plastic, phong, ward, rough diffuse, LEADR (scenes/materials.xml's
+    moments), rough plastic (GGX α 0.25; plastic when rough_plastic is
+    False), rough dielectric (GGX α 0.2) and dielectric; a conductor
+    cube; four panes of thin dielectric, difftrans, null and a two-sided
+    diffuse turned away from the camera and the light; a rectangle light
+    at y = 4. two_sided puts every material behind the two-sided
+    adapter."""
+    d = desc_cls()
+    ts = dict(two_sided=two_sided)
+    floor = d.add_material(kind="diffuse", albedo=(0.6, 0.6, 0.6), **ts)
+    rp = (dict(kind="roughplastic", diffuse_reflectance=(0.7, 0.2, 0.15),
+               alpha=0.25) if rough_plastic else
+          dict(kind="plastic", diffuse_reflectance=(0.7, 0.2, 0.15)))
+    spheres = [
+        d.add_material(kind="roughconductor", alpha=0.2, **ts),
+        d.add_material(kind="plastic", diffuse_reflectance=(0.5, 0.2, 0.2),
+                       **ts),
+        d.add_material(kind="phong", diffuse_reflectance=(0.3, 0.4, 0.2),
+                       specular_reflectance=(0.4, 0.4, 0.4), exponent=40.0,
+                       **ts),
+        d.add_material(kind="ward", diffuse_reflectance=(0.3, 0.3, 0.4),
+                       specular_reflectance=(0.3, 0.3, 0.3), alpha=0.15,
+                       alpha_v=0.3, **ts),
+        d.add_material(kind="roughdiffuse", albedo=(0.6, 0.5, 0.4),
+                       alpha=0.4, **ts),
+        d.add_material(kind="aniso_roughdiffuse", albedo=(0.6, 0.55, 0.2),
+                       moments0=(0.2, 0.0), moments1=(0.2, 0.03, 0.0), **ts),
+        d.add_material(**rp, **ts),
+        d.add_material(kind="roughdielectric", alpha=0.2, int_ior=1.5, **ts),
+        d.add_material(kind="dielectric", int_ior=1.5, **ts),
+    ]
+    mirror = d.add_material(kind="conductor", **ts)
+    panes = [d.add_material(kind="thindielectric", int_ior=1.5, **ts),
+             d.add_material(kind="difftrans", transmittance=(0.6, 0.5, 0.4),
+                            **ts),
+             d.add_material(kind="null", **ts),
+             d.add_material(kind="diffuse", albedo=(0.8, 0.4, 0.3),
+                            two_sided=True)]
+    d.add_shape(shapes.rectangle(), material=floor,
+                to_world=tf.translate([0, -1, 0])
+                @ tf.rotate([1, 0, 0], -90) @ tf.scale([6] * 3))
+    for i, m in enumerate(spheres):
+        row, col = divmod(i, 5)
+        x = 1.3 * col - (2.6 if row == 0 else 1.95)
+        d.add_shape(shapes.sphere(*sphere), material=m,
+                    to_world=tf.translate([x, -0.4, -1.6 * row])
+                    @ tf.scale([0.6] * 3))
+    d.add_shape(shapes.cube(), material=mirror,
+                to_world=tf.translate([0, -0.5, -3.4]) @ tf.scale([0.5] * 3))
+    for i, m in enumerate(panes):
+        x = (-3.4, -1.7, 1.7, 3.4)[i]
+        d.add_shape(shapes.rectangle(), material=m,
+                    to_world=tf.translate([x, 0.0, -3.2])
+                    @ tf.rotate([0, 1, 0], 180 if i == 3 else 0)
+                    @ tf.scale([0.6] * 3))
+    d.add_shape(shapes.rectangle(), material=floor,
+                radiance=(12.0, 11.0, 10.0),
+                to_world=tf.translate([0, 4, 0])
+                @ tf.rotate([1, 0, 0], 90) @ tf.scale([2.0] * 3))
+    return d
+
+
+def leaf_families_camera(cam_cls, tf, res):
+    """A res² camera at (0, 1.5, 6.5) looking down at (0, -0.4, -1), 45°
+    fov."""
+    return cam_cls(res, res, 45.0, tf.look_at(
+        origin=[0, 1.5, 6.5], target=[0, -0.4, -1], up=[0, 1, 0]))
+
+
 def four_materials(res, device=DEV, two_sided=False):
     """The four-material scene (sphere(16, 32)) compiled on `device`, and
     a res² camera at (0, 1, 6) looking along (0, -0.1, -1) with a 39°
@@ -490,7 +677,7 @@ def four_materials(res, device=DEV, two_sided=False):
     return compile_scene(desc, device=device), cam
 
 
-def shade_bound(label, scene, packed, bounce, rr_depth, card):
+def shade_bound(label, scene, packed, bounce, rr_depth, fam_ops, card):
     """The card's least time for one fused shade launch on these rows: the
     bytes over 3.35 TB/s and the fp32 operations over 67 TFLOP/s, each
     lane counted by what it does. A lane active on entry reads the K_IN
@@ -498,26 +685,27 @@ def shade_bound(label, scene, packed, bounce, rr_depth, card):
     the SHADE_ROWS_DEAD rows it passes through; every lane writes the
     K_OUT rows; the NEE distance row is read only by the lanes that
     trace a shadow ray, and the table rows those rays need come on top.
-    Operations: SHADE_KERNEL_OPS for each active lane by its family and
-    branch, plus the shadow rays' triangle tests as needed_work counts
-    them."""
+    Operations: SHADE_KERNEL_OPS for each active lane, its family's
+    sample and, where the eval branch runs, its eval (fam_ops, from
+    family_ops), plus the shadow rays' triangle tests as needed_work
+    counts them."""
     from mitsuba_tpu_torch.accel import shade_kernel as sk
     n = packed.shape[1]
     act = packed[sk.I_ACT] > 0.5
     n_act = int(act.sum())
     mtype = packed[sk.I_MAT + 12]
     fr = sk._front(packed, bounce, SHADE_DEPTH)
-    both_up = (fr.wi[2] > 0) & (fr.wo[2] > 0)        # the eval branch runs
+    both_up = (fr.wi[2] > 0) & (fr.wo[2] > 0)
     so, sd, smint, smaxt, live = sk.shadow_rays(packed, bounce, SHADE_DEPTH)
     n_live = int(live.sum())
     ops = SHADE_KERNEL_OPS["common"] * n_act
     ops += SHADE_KERNEL_OPS["shadow setup"] * n_live
     if bounce + 2 >= rr_depth:
         ops += SHADE_KERNEL_OPS["roulette"] * n_act
-    for fam, k in SHADE_KERNEL_OPS["eval"].items():
-        ops += k * int((act & both_up & (mtype == fam)).sum())
-    for fam, k in SHADE_KERNEL_OPS["sample"].items():
-        ops += k * int((act & (mtype == fam)).sum())
+    for fam, (n_eval, n_sample) in fam_ops.items():
+        lanes = act & (mtype == fam)
+        runs = lanes & (both_up | (fam in TRANSMISSIVE))
+        ops += n_eval * int(runs.sum()) + n_sample * int(lanes.sum())
     tests, trace_ops, table_bytes = needed_work(scene, so, sd, smint, smaxt,
                                                 live, True)
     ops += trace_ops
@@ -542,6 +730,8 @@ def shade_phases(card):
     from mitsuba_tpu_torch.accel import shade_kernel as sk
     from mitsuba_tpu_torch.accel import trace
     from mitsuba_tpu_torch.film.film import Film
+    from mitsuba_tpu_torch.integrator.mega import (MegaPathTracer,
+                                                   render_persistent)
     from mitsuba_tpu_torch.integrator.path import PathTracer, initial_state
     from mitsuba_tpu_torch.render import render_fn
 
@@ -549,6 +739,9 @@ def shade_phases(card):
     scene, cam = four_materials(CORNELL_RES)
     print(f"[shade] four-material scene: {scene.n_tris} triangles, "
           f"{scene.woop_clusters.shape[0]} clusters", flush=True)
+    fam_ops = family_ops(mk.build_mega_tables(scene))
+    print(f"[shade] fp32 ops by family (eval, sample): {fam_ops}",
+          flush=True)
     pix = torch.arange(CORNELL_RES ** 2, dtype=torch.int32, device=DEV)
     samp = torch.zeros_like(pix)
     err, timing = 0.0, {}
@@ -582,7 +775,8 @@ def shade_phases(card):
                     timing[b] = {"ms": time_ms(run, 100),
                                  "plain_ms": time_ms(plain, 5, warmup=1),
                                  **shade_bound(label, sc, packed, b,
-                                               tracer.rr_depth, card)}
+                                               tracer.rr_depth, fam_ops,
+                                               card)}
                     print(f"[shade] {label}: kernel "
                           f"{timing[b]['ms'] * 1e3:.2f} us/launch, plain "
                           f"{timing[b]['plain_ms']:.3f} ms ({card})",
@@ -622,12 +816,283 @@ def shade_phases(card):
     image_rule(img_on, img_off, f"fused on vs off, {SPP} spp")
     check(abs(n_on - n_off) <= 1e-4 * n_off,
           f"ray counts {n_on} (on) vs {n_off} (off)")
+    # the same scene on the megakernels: mega_path lane by lane, and the
+    # persistent image against the eager one
+    integ_m = MegaPathTracer.for_scene(scene, max_depth=SHADE_DEPTH)
+    st0 = initial_state(*mk.primary_rays(cam, 0, pix, 0))
+    k = mk.run_path(integ_m.tables, integ_m.rr_depth, SHADE_DEPTH,
+                    SHADE_DEPTH, st0, pix, samp, 0)
+    p = mk.path_plain(integ_m.tables, integ_m.rr_depth, SHADE_DEPTH,
+                      SHADE_DEPTH, st0, pix, samp, 0)
+    compare_rows("four-material mega_path, one sample", k, p)
+    img_p, n_p = render_persistent(integ_m, cam, SPP, seed=0)
+    image_rule(img_p, img_off, f"four-material render_persistent vs eager, "
+                               f"{SPP} spp")
+    check(abs(int(n_p) - n_off) <= 1e-4 * n_off,
+          f"four-material persistent rays {int(n_p)} vs {n_off}")
     b0 = timing[SHADE_BOUNCES[0]]
     return {"name": "shade", "route": "cuda",
             "source": "mitsuba_tpu_torch/csrc/shade.cu",
             "replaces": "mitsuba_tpu/accel/shade_kernel.py:75",
             "launches": l_on["shade"], "max_abs_err": err,
             **b0, "library_ms": None}
+
+
+def leaf_scene(res, device=DEV, **kw):
+    """The leaf-families scene (sphere(12, 24)) compiled on `device`, and
+    its res² camera."""
+    from mitsuba_tpu_torch.core import transform as tf
+    from mitsuba_tpu_torch.scene import shapes
+    from mitsuba_tpu_torch.scene.builder import SceneDesc, compile_scene
+    from mitsuba_tpu_torch.sensor.sensor import PerspectiveCamera
+    desc = leaf_families_desc(SceneDesc, tf, shapes, **kw)
+    return (compile_scene(desc, device=device),
+            leaf_families_camera(PerspectiveCamera, tf, res))
+
+
+def leaf_phases(card, kernels):
+    """Phases 11-15 on the leaf-families scene, 256², 6 bounces. Adds to
+    each entry of `kernels` (by name) a "leaf_families" object with the
+    kernel's launches on this scene's paths, its error against its plain
+    version and its times and bound here."""
+    from mitsuba_tpu_torch.accel import megakernel as mk
+    from mitsuba_tpu_torch.accel import shade_kernel as sk
+    from mitsuba_tpu_torch.accel import trace
+    from mitsuba_tpu_torch.film.film import Film
+    from mitsuba_tpu_torch.integrator.common import ray_mint
+    from mitsuba_tpu_torch.integrator.mega import (MegaPathTracer,
+                                                   render_persistent)
+    from mitsuba_tpu_torch.integrator.path import PathTracer, initial_state
+    from mitsuba_tpu_torch.render import render_fn
+
+    depth, res = SHADE_DEPTH, CORNELL_RES
+    leaf = {k["name"]: {} for k in kernels}
+    scene, cam = leaf_scene(res)
+    film = Film(res, res, "box")
+    fams = sorted(set(scene.mat_type.tolist()))
+    print(f"[leaf] leaf-families scene: {int((scene.tri_area > 0).sum())} "
+          f"triangles, {scene.woop_clusters.shape[0]} clusters, families "
+          f"{fams}", flush=True)
+    ok, why = MegaPathTracer.supports(scene, cam, film)
+    check(ok, f"MegaPathTracer refuses the leaf-families scene: {why}")
+    ok, why = sk.supports(scene)
+    check(not ok and why.startswith("rough plastic"),
+          f"shade supports on the leaf scene: {ok} {why}")
+    integ = MegaPathTracer.for_scene(scene, max_depth=depth)
+    tables, rr = integ.tables, integ.rr_depth
+    pix = torch.arange(res * res, dtype=torch.int32, device=DEV)
+    samp = torch.zeros_like(pix)
+    o0, d0 = mk.primary_rays(cam, 0, pix, 0)
+    st0 = initial_state(o0, d0)
+
+    # ---- the trace kernel on this scene's rays -----------------------------
+    errs = {"trace_closest": 0.0, "trace_any": 0.0}
+    primary = (o0, d0, ray_mint(o0), torch.full_like(o0[:, 0], 1e30), None)
+    shadow = shadow_rays(scene, o0, d0)
+    compare("leaf primary", scene, *primary, errs)
+    compare("leaf shadow", scene, *shadow, errs)
+    for name, any_hit, rays in (("trace_closest", False, primary),
+                                ("trace_any", True, shadow)):
+        leaf[name] = {"max_abs_err": errs[name],
+                      **measure(f"{name}, leaf bounce 0", any_hit, scene,
+                                rays, 3, card)}
+
+    # ---- 11. mega_bounce, lane by lane --------------------------------------
+    fam_ops = family_ops(tables)
+    print(f"[leaf] fp32 ops by family (eval, sample): {fam_ops}", flush=True)
+    works, work_pass = pass_work(tables, st0, pix, samp, depth)
+    st, err = st0, 0.0
+    for b in range(max(LEAF_BOUNCES) + 1):
+        if b in LEAF_BOUNCES:
+            k = mk.run_bounce(tables, rr, depth, st, pix, samp, 0, b)
+            p = mk.bounce_plain(tables, rr, depth, st, pix, samp, 0, b)
+            err = max(err, compare_rows(f"leaf mega_bounce, bounce {b}", k,
+                                        p))
+        st = mk.bounce_plain(tables, rr, depth, st, pix, samp, 0, b)[:16]
+    mk.reset_launches()
+    st, counts = st0, torch.zeros_like(st0[:2])
+    for b in range(depth):
+        out = mk.run_bounce(tables, rr, depth, st, pix, samp, 0, b)
+        st, counts = out[:16], counts + out[16:18]
+    torch.cuda.synchronize()
+    launches = mk.LAUNCHES["mega_bounce"]
+    ref = mk.run_path(tables, rr, depth, depth, st0, pix, samp, 0)
+    check(launches == depth, f"leaf mega_bounce launched {launches} times")
+    check(torch.equal(st, ref[:16]) and torch.equal(counts, ref[16:18]),
+          "leaf: bounce-by-bounce pass differs from mega_path")
+    out0 = mk.run_bounce(tables, rr, depth, st0, pix, samp, 0, 0)
+    leaf["mega_bounce"] = {
+        "launches": launches, "max_abs_err": err,
+        "ms": time_ms(lambda: mk.run_bounce(tables, rr, depth, st0, pix,
+                                            samp, 0, 0), 50),
+        "plain_ms": time_ms(lambda: mk.bounce_plain(
+            tables, rr, depth, st0, pix, samp, 0, 0), 3, warmup=1),
+        **mega_bound("leaf mega_bounce, bounce 0", works[0],
+                     int(out0[16].sum()), int(out0[17].sum()), 0,
+                     pix.shape[0], 16, 18, tables, card)}
+
+    # ---- 12. mega_path: render() against the eager render -------------------
+    eager = PathTracer(max_depth=depth)
+    img_e, n_e = render_fn(scene, cam, film, eager, spp=LEAF_SPP, seed=0,
+                           device=DEV)
+    mk.reset_launches()
+    img_m, n_m = render_fn(scene, cam, film, integ, spp=LEAF_SPP, seed=0,
+                           device=DEV)
+    torch.cuda.synchronize()
+    launches = mk.LAUNCHES["mega_path"]
+    n_e, n_m = int(n_e), int(n_m)
+    print(f"[leaf mega path] render() with MegaPathTracer, {LEAF_SPP} spp: "
+          f"{launches} mega_path launches, {n_m} rays (eager {n_e}), mean "
+          f"{img_m.mean().item():.5f} (eager {img_e.mean().item():.5f})",
+          flush=True)
+    check(launches == LEAF_SPP, f"leaf mega_path launched {launches} times")
+    check(bool(torch.isfinite(img_m).all()), "leaf mega_path image NaN/Inf")
+    image_rule(img_m, img_e, f"leaf render MegaPathTracer vs eager, "
+                             f"{LEAF_SPP} spp")
+    check(abs(n_m - n_e) <= 1e-4 * n_e, f"leaf rays {n_m} vs {n_e}")
+    k = mk.run_path(tables, rr, depth, depth, st0, pix, samp, 0)
+    p = mk.path_plain(tables, rr, depth, depth, st0, pix, samp, 0)
+    leaf["mega_path"] = {
+        "launches": launches,
+        "max_abs_err": compare_rows("leaf mega_path, one sample", k, p),
+        "ms": time_ms(lambda: mk.run_path(tables, rr, depth, depth, st0, pix,
+                                          samp, 0), 20),
+        "plain_ms": time_ms(lambda: mk.path_plain(
+            tables, rr, depth, depth, st0, pix, samp, 0), 1, warmup=1),
+        **mega_bound("leaf mega_path, one sample", work_pass,
+                     int(k[16].sum()), int(k[17].sum()), 0, pix.shape[0],
+                     16, 18, tables, card)}
+
+    # ---- 13. mega_persistent ------------------------------------------------
+    img_r, n_r = render_persistent(integ, cam, LEAF_SPP, seed=0)
+    n_r = int(n_r)
+    print(f"[leaf persistent] {LEAF_SPP} spp: {n_r} rays (eager {n_e}), "
+          f"mean {img_r.mean().item():.5f}", flush=True)
+    image_rule(img_r, img_e, f"leaf render_persistent vs eager, {LEAF_SPP} "
+                             "spp")
+    check(abs(n_r - n_e) <= 1e-4 * n_e, f"leaf persistent rays {n_r}")
+    pst = torch.cat([st0, torch.zeros_like(st0[:8])])
+    run_p = lambda spp: mk.run_persistent(tables, rr, depth, spp, cam, pst,
+                                          pix, samp, 0)
+    run_p(LEAF_PERSIST_SPP)
+    mk.reset_launches()
+    ms, out = events_ms(lambda: run_p(LEAF_PERSIST_SPP))
+    launches = mk.LAUNCHES["mega_persistent"]
+    rays = int(out[22].sum()) + int(out[23].sum())
+    check((out[17] == LEAF_PERSIST_SPP).all().item(), "leaf spp not done")
+    check(bool(torch.isfinite(out[18:21]).all()), "leaf persistent NaN/Inf")
+    print(f"[leaf persistent] {res}², {LEAF_PERSIST_SPP} spp: one launch "
+          f"{ms:.4f} ms (CUDA events), {rays} rays, {rays / ms * 1e3:.6g} "
+          f"rays/s in the kernel, mean "
+          f"{(out[18:21] / LEAF_PERSIST_SPP).mean().item():.5f} ({card})",
+          flush=True)
+    sub = slice(0, None, LEAF_PLAIN_LANES)
+    pst_s = pst[:, sub].contiguous()
+    pix_s, samp_s = pix[sub].contiguous(), samp[sub].contiguous()
+    k = mk.run_persistent(tables, rr, depth, LEAF_PLAIN_SPP, cam, pst_s,
+                          pix_s, samp_s, 0)
+    plain_ms, p = events_ms(lambda: mk.persistent_plain(
+        tables, rr, depth, LEAF_PLAIN_SPP, cam, pst_s, pix_s, samp_s, 0))
+    leaf["mega_persistent"] = {
+        "launches": launches, "ms": ms,
+        "max_abs_err": compare_rows(
+            f"leaf mega_persistent, {pix_s.shape[0]} lanes x "
+            f"{LEAF_PLAIN_SPP} spp", k, p),
+        "plain_ms": plain_ms,
+        "plain_shape": f"{pix_s.shape[0]} lanes x {LEAF_PLAIN_SPP} spp",
+        "ms_at_plain_shape": time_ms(lambda: mk.run_persistent(
+            tables, rr, depth, LEAF_PLAIN_SPP, cam, pst_s, pix_s, samp_s, 0),
+            3, warmup=1),
+        **mega_bound(f"leaf mega_persistent, {LEAF_PERSIST_SPP} spp",
+                     work_pass, int(out[22].sum()), int(out[23].sum()),
+                     LEAF_PERSIST_SPP * pix.shape[0], pix.shape[0], 24, 24,
+                     tables, card)}
+    del integ, tables, scene
+
+    # ---- 14. the shade kernel: rough plastic swapped, every material
+    # two-sided; then one-sided for the timing --------------------------------
+    scene_s = leaf_scene(res, rough_plastic=False)[0]
+    scene_2s = leaf_scene(res, rough_plastic=False, two_sided=True)[0]
+    ok, why = sk.supports(scene_2s)
+    check(ok, f"shade refuses the swapped leaf scene: {why}")
+    fam_ops = family_ops(mk.build_mega_tables(scene_s))
+    err, timing, n_flips = 0.0, {}, 0
+    for sc in (scene_2s, scene_s):
+        two_sided = sc is scene_2s
+        tracer = PathTracer(max_depth=depth).specialized_for(sc)
+        st = st0
+        for b in range(max(LEAF_BOUNCES) + 1):
+            if b in LEAF_BOUNCES:
+                label = f"leaf shade, bounce {b}" + ", two-sided" * two_sided
+                packed = tracer.shade_inputs(sc, st, 0, pix, samp, b)
+                run = lambda: sk.run_shade(sc, packed, pix, samp, 0, b, rr,
+                                           depth)
+                plain = lambda: sk.shade_plain(sc, packed, pix, samp, 0, b,
+                                               rr, depth)
+                err = max(err, compare_rows(label, run(), plain()))
+                act = packed[sk.I_ACT] > 0.5
+                share = sk.shadow_rays(packed, b, depth)[4]
+                flips = ((sk._front(packed, b, depth).fsign < 0)
+                         & (packed[sk.I_HIT] > 0.5))
+                print(f"[leaf shade] {label}: {act.float().mean().item():.4f}"
+                      f" of lanes active, {share.float().mean().item():.4f} "
+                      f"trace a shadow ray, {flips.float().mean().item():.4f}"
+                      f" flip", flush=True)
+                if two_sided:
+                    n_flips += int(flips.sum())
+                else:
+                    timing[b] = {"ms": time_ms(run, 50),
+                                 "plain_ms": time_ms(plain, 2, warmup=1),
+                                 **shade_bound(label, sc, packed, b, rr,
+                                               fam_ops, card)}
+                    print(f"[leaf shade] {label}: kernel "
+                          f"{timing[b]['ms'] * 1e3:.2f} us/launch, plain "
+                          f"{timing[b]['plain_ms']:.3f} ms ({card})",
+                          flush=True)
+            st = tracer.bounce(sc, st, 0, pix, samp, b)[0]
+    check(n_flips > 0, "leaf shade: no lane flipped")
+    del scene_2s
+
+    # ---- 15. the eager path, tail off and fused, 64 spp ---------------------
+    results = {}
+    for mode in ("off", "on"):
+        integ_e = PathTracer(max_depth=depth, fused_shade=mode)
+        render_fn(scene_s, cam, film, integ_e, spp=1, seed=0, device=DEV)
+        torch.cuda.synchronize()                            # (warm-up)
+        trace.reset_launches()
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        img, n = render_fn(scene_s, cam, film, integ_e, spp=SPP, seed=0,
+                           device=DEV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**trace.LAUNCHES, **sk.LAUNCHES}
+        results[mode] = (img, int(n), launches)
+        print(f"[leaf fused {mode}] {res}², {depth} bounces, {SPP} spp: "
+              f"{wall:.3f} s, {int(n)} rays, {int(n) / wall:.4g} rays/s, "
+              f"mean {img.mean().item():.5f}, launches {launches} ({card})",
+              flush=True)
+        check(bool(torch.isfinite(img).all()), f"leaf fused {mode}: NaN/Inf")
+        profile_pass(scene_s, cam, film, integ_e, card)
+    (img_off, n_off, l_off), (img_on, n_on, l_on) = results["off"], \
+        results["on"]
+    check(l_on["shade"] == depth * SPP,
+          f"leaf shade launched {l_on['shade']} times")
+    image_rule(img_on, img_off, f"leaf fused on vs off, {SPP} spp")
+    check(abs(n_on - n_off) <= 1e-4 * n_off, f"leaf rays {n_on} vs {n_off}")
+    # the persistent kernel on the same scene and spp
+    integ_s = MegaPathTracer.for_scene(scene_s, max_depth=depth)
+    img_p, n_p = render_persistent(integ_s, cam, SPP, seed=0)
+    image_rule(img_p, img_off, f"leaf render_persistent vs eager, {SPP} spp")
+    check(abs(int(n_p) - n_off) <= 1e-4 * n_off,
+          f"leaf persistent rays {int(n_p)} vs {n_off}")
+    leaf["shade"] = {"launches": l_on["shade"], "max_abs_err": err,
+                     **timing[LEAF_BOUNCES[0]],
+                     "bounce_3": timing[LEAF_BOUNCES[1]]}
+    for name in ("trace_closest", "trace_any"):
+        leaf[name]["launches"] = l_off[name]
+    for k in kernels:
+        k["leaf_families"] = leaf[k["name"]]
 
 
 def main():
@@ -787,10 +1252,7 @@ def main():
     check(bounce_launches == MAX_DEPTH,
           f"mega_bounce launched {bounce_launches} times")
     check(same, "bounce-by-bounce pass differs from mega_path")
-    work = [bounce_work(scene, st, pix, samp, b)
-            for b, st in enumerate(states)]
-    work_pass = {key: sum(w[key] for w in work) for key in work[0]}
-    work_pass["table_bytes"] = max(w["table_bytes"] for w in work)
+    work, work_pass = pass_work(tables, st0, pix, samp, MAX_DEPTH)
     out0 = mk.run_bounce(tables, rr, MAX_DEPTH, st0, pix, samp, 0, 0)
     kernels.append({
         "name": "mega_bounce", "route": "cuda",
@@ -904,6 +1366,7 @@ def main():
         **persist_row, "library_ms": None})
 
     kernels.append(shade_phases(card))
+    leaf_phases(card, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,9 +7,9 @@ emitter-hit terms and the NEE sample (integrator/path.py). `run_shade`
 launches csrc/shade.cu for CUDA tensors and runs `shade_plain`, a PyTorch
 transcription of the kernel body, for CPU tensors; there is no fallback.
 The BSDF arithmetic is the JAX megakernel's device form
-(accel/megakernel.py bsdf_eval_pdf / bsdf_sample), for the diffuse,
-conductor, isotropic-GGX rough-conductor and smooth-dielectric families
-and the two-sided adapter.
+(accel/megakernel.py bsdf_eval_pdf / bsdf_sample), for the 13 leaf
+families other than rough plastic (whose transmittance rows the K_IN
+layout does not carry) and the two-sided adapter.
 
 Layout: K_IN input rows and K_OUT output rows, one column per lane
 (structure of arrays). The TPU's [K*8, N/8] packing, its block padding
@@ -26,7 +26,9 @@ import torch
 
 from ..core import rng
 from ..integrator.common import mis_power
-from ..scene.scene import MAT_ROUGH_CONDUCTOR, SceneData
+from ..scene.scene import (MAT_COATING, MAT_MIXTURE, MAT_ROUGH_COATING,
+                           MAT_ROUGH_CONDUCTOR, MAT_ROUGH_DIELECTRIC,
+                           MAT_ROUGH_PLASTIC, SceneData)
 from . import dense, trace
 from .megakernel import SHADE_FAMILIES, bsdf_eval_pdf, bsdf_sample
 
@@ -68,17 +70,35 @@ def reset_launches():
     LAUNCHES["shade"] = 0
 
 
+# composite codes: the JAX kernel's dispatch has no branch for them
+_COMPOSITES = {MAT_MIXTURE: "mixture", MAT_COATING: "coating",
+               MAT_ROUGH_COATING: "rough coating"}
+
+
 def supports(scene: SceneData) -> tuple[bool, str]:
     """Can the fused tail shade this scene? (ok, reason). The JAX gate
     (shade_kernel.py supports: a cluster table, families the kernel
     knows; its independent-sampler condition always holds, as the port's
-    PathTracer has no other sampler) over the port's families, plus the
-    gate of integrator/mega.py for rough conductors: the kernel's branch
-    is isotropic GGX, so a Beckmann or anisotropic one is turned away
-    instead of rendering as isotropic GGX."""
+    PathTracer has no other sampler), narrowed where the JAX kernel
+    shades wrong: rough plastic reads transmittance rows past the K_IN
+    input (RTROW = 34 onward, not packed) and the composites have no
+    branch in its dispatch, so both are turned away. The kernel's
+    microfacet branches are isotropic GGX, so a Beckmann or anisotropic
+    rough conductor and a non-GGX or anisotropic rough dielectric are
+    turned away too (the gate of integrator/mega.py) instead of rendering
+    as isotropic GGX."""
     if scene.woop_clusters is None or scene.cluster_aabb is None:
         return False, "no cluster table"
     fams = set(scene.mat_type.tolist())
+    if MAT_ROUGH_PLASTIC in fams:
+        return False, ("rough plastic: the kernel's input rows carry "
+                       "material columns 0..12 and 15, not the "
+                       "transmittance rows it reads")
+    comp = sorted(fams & set(_COMPOSITES))
+    if comp:
+        return False, (f"composite BSDF families {comp} "
+                       f"({', '.join(_COMPOSITES[c] for c in comp)}): the "
+                       "kernel's dispatch has no branch for them")
     if fams - SHADE_FAMILIES:
         return False, (f"BSDF families {sorted(fams - SHADE_FAMILIES)} not "
                        "in the fused shade kernel")
@@ -88,6 +108,10 @@ def supports(scene: SceneData) -> tuple[bool, str]:
         return False, "Beckmann rough conductor (the kernel's is GGX)"
     if (rc[:, 9] != rc[:, 10]).any():
         return False, "anisotropic rough conductor (the kernel's is isotropic)"
+    rd = mp[mp[:, 12] == MAT_ROUGH_DIELECTRIC]
+    if (rd[:, 11] != 1.0).any() or (rd[:, 9] != rd[:, 10]).any():
+        return False, ("non-GGX/anisotropic rough dielectric (the kernel's "
+                       "is isotropic GGX)")
     return True, ""
 
 

@@ -1,6 +1,7 @@
 """Fresnel reflectance for dielectrics and conductors (port of
-mitsuba_tpu/core/fresnel.py: fresnel_dielectric and
-fresnel_conductor_exact), branchless, with the JAX package's clamps."""
+mitsuba_tpu/core/fresnel.py: fresnel_dielectric,
+fresnel_conductor_exact and fresnel_diffuse_reflectance), branchless,
+with the JAX package's clamps."""
 from __future__ import annotations
 
 import torch
@@ -47,3 +48,17 @@ def fresnel_conductor_exact(cos_theta_i, eta, k):
     t4 = t2 * s2
     rp = rs * (t3 - t4) / torch.clamp(t3 + t4, min=1e-6)
     return 0.5 * (rp + rs)
+
+
+def fresnel_diffuse_reflectance(eta):
+    """Hemispherically averaged dielectric Fresnel reflectance, the
+    polynomial fits plastic and rough plastic use for internal scattering
+    (ref: util.cpp fresnelDiffuseReflectance): Egan & Hilgeman below
+    eta 1, d'Eon & Irving above."""
+    inv_eta = 1.0 / eta
+    below = -1.4399 * (eta * eta) + 0.7099 * eta + 0.6681 + 0.0636 * inv_eta
+    ie2 = inv_eta * inv_eta
+    ie3 = ie2 * inv_eta
+    above = (0.919317 - 3.4793 * inv_eta + 6.75335 * ie2
+             - 7.80989 * ie3 + 4.98554 * ie2 * ie2 - 1.36881 * ie2 * ie3)
+    return torch.where(eta < 1.0, below, above)

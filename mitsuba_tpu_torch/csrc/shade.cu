@@ -3,10 +3,11 @@
 // for one path vertex per lane, in one kernel.
 //
 // Replaces the Pallas TPU kernel of mitsuba_tpu/accel/shade_kernel.py:
-// make_shade_kernel (:75), launched by _run_shade (:252), for the diffuse,
-// conductor, isotropic-GGX rough-conductor and smooth-dielectric families
-// with the two-sided adapter. Its plain version is shade_plain in
-// accel/shade_kernel.py, which this kernel matches op for op.
+// make_shade_kernel (:75), launched by _run_shade (:252), for the 13 leaf
+// families other than rough plastic (whose transmittance rows the K_IN
+// input does not carry) with the two-sided adapter. Its plain version is
+// shade_plain in accel/shade_kernel.py, which this kernel matches op for
+// op.
 //
 // Design: one thread per lane, 128-thread blocks. The input is the JAX
 // kernel's K_IN = 50 rows and the output its K_OUT = 16 rows, one column
@@ -115,7 +116,7 @@ shade(const float4* __restrict__ woop, const float* __restrict__ aabb,
   const float wol_y = dot_rows(ldx, ldy, ldz, tx, ty, tz);
   const float wol_z = dot_rows(ldx, ldy, ldz, nx, ny, nz) * fsign;
   float f[3], pdf_fwd;
-  bsdf_eval_pdf(m, wix, wiy, wiz, wol_x, wol_y, wol_z, f, pdf_fwd);
+  bsdf_eval_pdf<false>(m, wix, wiy, wiz, wol_x, wol_y, wol_z, f, pdf_fwd);
   const int depth = bounce + 2;
   const bool contrib = hit && depth + 1 <= max_depth + 1 && pdf_nee > 0.f
                        && (f[0] > 0.f || f[1] > 0.f || f[2] > 0.f);
@@ -148,7 +149,8 @@ shade(const float4* __restrict__ woop, const float* __restrict__ aabb,
                        + static_cast<uint32_t>(bounce) * kDimsPerBounce;
   const float2 ub = rng2(seed, pix, dim + kDimBsdfU2, smp);
   const float uc = rng2(seed, pix, dim + kDimBsdfU1, smp).x;
-  const BsdfSample bs = bsdf_sample(m, wix, wiy, wiz, ub.x, ub.y, uc);
+  const BsdfSample bs = bsdf_sample<false>(m, wix, wiy, wiz, ub.x, ub.y,
+                                           uc);
   const float nwz = bs.wo[2] * fsign;    // un-flip (two-sided adapter)
   const float ndx = (bs.wo[0] * sx + bs.wo[1] * tx) + nwz * nx;
   const float ndy = (bs.wo[0] * sy + bs.wo[1] * ty) + nwz * ny;

@@ -1,17 +1,21 @@
 """MegaPathTracer: the path megakernel integrator (port of
-mitsuba_tpu/integrator/mega.py, the Cornell subset).
+mitsuba_tpu/integrator/mega.py for surface scenes).
 
 A drop-in replacement for PathTracer on scenes the megakernel covers:
-pinhole perspective camera, flat shading, diffuse materials, area emitters,
-no medium, no textures, box film. `supports()` reports whether a scene
-qualifies; `for_scene(scene, ...)` packs the scene tables once. On CUDA
+pinhole perspective camera, flat or smooth shading normals, the 14 leaf
+BSDF families (isotropic GGX where microfacet) with the two-sided
+adapter, area emitters, no medium, no textures, box film. `supports()`
+reports whether a scene qualifies; `for_scene(scene, ...)` packs the
+scene tables once. On CUDA
 tensors li_stats runs whole paths in one launch of the mega_path kernel and
 render_persistent renders every pixel's spp paths in one launch of
 mega_persistent; on CPU tensors both run the plain versions
 (accel/megakernel.py). Estimator and sample streams are PathTracer's.
 
-Not ported yet: MegaVolPathTracer (the homogeneous medium branch) and
-render_persistent_sharded.
+Not ported yet: the composite families (mixture, coating, rough
+coating), point, spot, directional and constant emitters, the thin-lens
+camera, procedural textures, MegaVolPathTracer (the homogeneous medium
+branch) and render_persistent_sharded.
 """
 from __future__ import annotations
 
@@ -20,9 +24,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..accel.megakernel import (N_PSTATE, MegaTables, build_mega_tables,
-                                primary_rays, run_path, run_persistent,
-                                to_numpy)
+from ..accel.megakernel import (LEAF_FAMILIES, N_PSTATE, MegaTables,
+                                build_mega_tables, primary_rays, run_path,
+                                run_persistent, to_numpy)
 from ..scene import scene as S
 from ..scene.scene import SceneData
 from ..sensor.sensor import PerspectiveCamera
@@ -37,6 +41,10 @@ _REF_EM_TYPES = frozenset({S.EM_AREA, S.EM_POINT, S.EM_CONSTANT,
 _REF_MAX_TRIS = 32768
 _EM_NAMES = {S.EM_POINT: "point", S.EM_CONSTANT: "constant",
              S.EM_DIRECTIONAL: "directional", S.EM_SPOT: "spot"}
+# the JAX gate's isotropic-GGX microfacet families (mega.py:98-113)
+_GGX_ONLY = ((S.MAT_ROUGH_DIELECTRIC, "roughdielectric"),
+             (S.MAT_ROUGH_CONDUCTOR, "roughconductor"),
+             (S.MAT_ROUGH_PLASTIC, "roughplastic"))
 
 
 @dataclass(frozen=True, eq=False)
@@ -63,11 +71,16 @@ class MegaPathTracer(PathTracer):
         fams = set(int(x) for x in np.unique(to_numpy(scene.mat_type)))
         if fams - _REF_FAMILIES:
             return False, f"unsupported BSDF families {fams - _REF_FAMILIES}"
+        mp, mt = to_numpy(scene.mat_params), to_numpy(scene.mat_type)
+        for code, name in _GGX_ONLY:
+            rows = mp[mt == code]
+            if (rows[:, 11] != 1).any() or (rows[:, 9] != rows[:, 10]).any():
+                return False, f"non-GGX/anisotropic {name}"
         if bool(to_numpy(scene.has_medium)):
             return False, "participating medium"
-        mp, mt = to_numpy(scene.mat_params), to_numpy(scene.mat_tex)
-        if (mt >= 0).any() or (mp[:, 16] >= 0).any():
-            return False, "textured material"
+        if (to_numpy(scene.mat_tex) >= 0).any() or (mp[:, 16] >= 0).any():
+            return False, ("textured material (procedural checker/grid "
+                           "textures not ported)")
         areas = to_numpy(scene.tri_area)
         n_real = int(np.max(np.nonzero(areas > 0)[0]) + 1) if \
             (areas > 0).any() else 1
@@ -81,14 +94,9 @@ class MegaPathTracer(PathTracer):
         for t in em_types:
             if t != S.EM_AREA:
                 return False, f"{_EM_NAMES[t]} emitters not ported"
-        if fams - {S.MAT_DIFFUSE}:
-            return False, (f"BSDF families {sorted(fams - {S.MAT_DIFFUSE})}"
+        if fams - LEAF_FAMILIES:
+            return False, (f"BSDF families {sorted(fams - LEAF_FAMILIES)}"
                            " not ported")
-        if (mp[:, 15] > 0.5).any():
-            return False, "two-sided materials not ported"
-        attr = to_numpy(scene.tri_attr)
-        if np.any(np.abs(attr[:, 6:12] - np.tile(attr[:, 3:6], 2)) > 1e-7):
-            return False, "smooth shading normals not ported"
         if camera is not None and camera.aperture_radius > 0.0:
             return False, "thin-lens camera not ported"
         return True, ""

@@ -227,17 +227,27 @@ class PathTracer:
         return _Vertex(its, frame, mat, d, throughput, L, ds, active, hit,
                        nee_allowed & (ds.pdf > 0), state[15], d1, d2)
 
+    def _bsdf_eval(self, v: "_Vertex", wi, wo):
+        """f·cosθo [N, 3] and the pdf [N] of the vertex's BSDF at local
+        (wi, wo): bsdf.py's families."""
+        return (eval_bsdf_ex(v.mat, wi, wo, self.families),
+                pdf_bsdf_ex(v.mat, wi, wo, self.families))
+
+    def _bsdf_sample(self, v: "_Vertex", wi, u2, u1):
+        """One BSDF sample at local wi (bsdf.py's families)."""
+        return sample_bsdf_ex(v.mat, wi, u2, u1, self.families)
+
     def _shade_eager(self, scene, v: "_Vertex", depth: int):
         """The shading tail (the JAX _shade_xla): NEE BSDF eval, shadow
         trace, MIS, BSDF sampling and Russian roulette. Returns the new
         state rows [16, N]."""
-        its, frame, mat, d, throughput, L, ds, hit, shadow, eta_scale = (
-            v.its, v.frame, v.mat, v.d, v.throughput, v.L, v.ds, v.hit,
+        its, frame, d, throughput, L, ds, hit, shadow, eta_scale = (
+            v.its, v.frame, v.d, v.throughput, v.L, v.ds, v.hit,
             v.shadow, v.eta_scale)
         d1, d2 = v.d1, v.d2
         wi_local = Frame.to_local(frame, -d)
         wo_nee = Frame.to_local(frame, ds.d)
-        f_nee = eval_bsdf_ex(mat, wi_local, wo_nee, self.families)
+        f_nee, pdf_nee = self._bsdf_eval(v, wi_local, wo_nee)
         contributes = shadow & (f_nee > 0).any(-1)
         # shadow ray over [ε, dist·(1-ShadowEpsilon)] (scene.cpp:846)
         so = offset_ray_origin(its.p, its.ng, ds.d)
@@ -245,14 +255,12 @@ class PathTracer:
             scene, so, ds.d, ray_mint(so),
             ds.dist * (1.0 - SHADOW_EPSILON), contributes)
         contributes = contributes & ~occluded
-        w_nee = torch.where(ds.is_delta, 1.0, mis_power(
-            ds.pdf, pdf_bsdf_ex(mat, wi_local, wo_nee, self.families)))
+        w_nee = torch.where(ds.is_delta, 1.0, mis_power(ds.pdf, pdf_nee))
         L = L + torch.where(contributes[:, None], throughput * ds.value
                             * f_nee * w_nee[:, None], 0.0)
 
         # ---- BSDF sampling → next ray ----------------------------------
-        bs = sample_bsdf_ex(mat, wi_local, d2(DIM_BSDF_U2), d1(DIM_BSDF_U1),
-                            self.families)
+        bs = self._bsdf_sample(v, wi_local, d2(DIM_BSDF_U2), d1(DIM_BSDF_U1))
         d_next = Frame.to_world(frame, bs.wo)
         o_next = offset_ray_origin(its.p, its.ng, d_next)
         throughput_next = throughput * bs.weight

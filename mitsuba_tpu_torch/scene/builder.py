@@ -1,7 +1,7 @@
 """Scene builder: declarative scene description → compiled SceneData on one
 device (port of mitsuba_tpu/scene/builder.py, the part the port renders:
-triangle meshes, the diffuse, conductor, rough-conductor and dielectric
-materials with the two-sided adapter, area emitters).
+triangle meshes, the 14 leaf BSDF families with the two-sided adapter,
+area emitters).
 
 All transform work is host-side float64; device tensors are float32, as in
 the JAX package, so both builders produce the same arrays. A description
@@ -29,30 +29,43 @@ from .shapes import Mesh
 
 @dataclass
 class Material:
-    """BSDF description. The port compiles the kinds "diffuse",
-    "conductor", "roughconductor" and "dielectric", each optionally
-    two-sided; parameters and defaults are the JAX builder's (each
-    plugin's Properties defaults)."""
+    """BSDF description. The port compiles the leaf kinds of _KINDS, each
+    optionally two-sided; parameters and defaults are the JAX builder's
+    (each plugin's Properties defaults)."""
     kind: str = "diffuse"
-    albedo: Sequence[float] = (0.5, 0.5, 0.5)       # diffuse
+    albedo: Sequence[float] = (0.5, 0.5, 0.5)       # diffuse/roughdiffuse
     eta: Sequence[float] | float = (0.2004, 0.9240, 1.1022)  # conductor (Cu)
     k: Sequence[float] = (3.9129, 2.4528, 2.1421)
     specular_reflectance: Sequence[float] = (1.0, 1.0, 1.0)
     specular_transmittance: Sequence[float] = (1.0, 1.0, 1.0)
+    diffuse_reflectance: Sequence[float] = (0.5, 0.5, 0.5)
     alpha: float = 0.1
     alpha_v: Optional[float] = None
     distribution: str = "ggx"                         # "beckmann"|"ggx"
     int_ior: float = 1.5046                           # dielectric (BK7)
     ext_ior: float = 1.000277                         # air
+    exponent: float = 30.0                            # phong
+    nonlinear: bool = False                           # plastic
     albedo_texture: int = -1
     roughness_texture: int = -1
     two_sided: bool = False                           # twosided adapter
     normal_texture: int = -1
     bump_scale: float = 0.0
+    transmittance: Sequence[float] = (0.5, 0.5, 0.5)  # difftrans
+    moments0: Sequence[float] = (0.0, 0.0)   # aniso_roughdiffuse: mean
+    #   slope (E[x], E[y]) of the LEADR Gaussian slope distribution
+    moments1: Sequence[float] = (0.5, 0.5, 0.0)  # (E[x²], E[y²], E[xy])
+    sample_visibility: bool = True           # Smith G2 shadowing on/off
 
     _KINDS = {"diffuse": S.MAT_DIFFUSE, "conductor": S.MAT_CONDUCTOR,
               "roughconductor": S.MAT_ROUGH_CONDUCTOR,
-              "dielectric": S.MAT_DIELECTRIC}
+              "dielectric": S.MAT_DIELECTRIC, "plastic": S.MAT_PLASTIC,
+              "roughdielectric": S.MAT_ROUGH_DIELECTRIC,
+              "roughplastic": S.MAT_ROUGH_PLASTIC, "phong": S.MAT_PHONG,
+              "ward": S.MAT_WARD, "roughdiffuse": S.MAT_ROUGH_DIFFUSE,
+              "null": S.MAT_NULL, "thindielectric": S.MAT_THIN_DIELECTRIC,
+              "difftrans": S.MAT_DIFFTRANS,
+              "aniso_roughdiffuse": S.MAT_ANISO_ROUGHDIFFUSE}
 
     def compile(self):
         """→ (type code, param row [24] f32, texture slots [2] i32), the
@@ -71,7 +84,7 @@ class Material:
         p = np.zeros(S.N_MAT_PARAMS, np.float32)
         dist = 1.0 if self.distribution == "ggx" else 0.0
         av = self.alpha if self.alpha_v is None else self.alpha_v
-        if code == S.MAT_DIFFUSE:
+        if code in (S.MAT_DIFFUSE, S.MAT_ROUGH_DIFFUSE):
             p[0:3] = self.albedo
             p[9] = self.alpha
         elif code in (S.MAT_CONDUCTOR, S.MAT_ROUGH_CONDUCTOR):
@@ -79,11 +92,33 @@ class Material:
             p[3:6] = self.k
             p[6:9] = self.specular_reflectance
             p[9], p[10], p[11] = self.alpha, av, dist
-        else:
+        elif code in (S.MAT_DIELECTRIC, S.MAT_ROUGH_DIELECTRIC,
+                      S.MAT_THIN_DIELECTRIC):
             p[0] = self.int_ior / self.ext_ior
             p[1:4] = self.specular_reflectance
             p[4:7] = self.specular_transmittance
             p[9], p[10], p[11] = self.alpha, av, dist
+        elif code in (S.MAT_PLASTIC, S.MAT_ROUGH_PLASTIC):
+            p[0] = self.int_ior / self.ext_ior
+            p[1:4] = self.diffuse_reflectance
+            p[4:7] = self.specular_reflectance
+            p[7] = float(self.nonlinear)
+            p[9], p[10], p[11] = self.alpha, av, dist
+        elif code == S.MAT_PHONG:
+            p[0:3] = self.diffuse_reflectance
+            p[3:6] = self.specular_reflectance
+            p[6] = self.exponent
+        elif code == S.MAT_WARD:
+            p[0:3] = self.diffuse_reflectance
+            p[3:6] = self.specular_reflectance
+            p[9], p[10] = self.alpha, av
+        elif code == S.MAT_DIFFTRANS:
+            p[0:3] = self.transmittance
+        elif code == S.MAT_ANISO_ROUGHDIFFUSE:
+            p[0:3] = self.albedo
+            p[3:5] = self.moments0
+            p[5:8] = self.moments1
+            p[11] = float(self.sample_visibility)
         # dispatch metadata packed into the row (scene.py layout)
         p[12] = float(code)
         p[13], p[14] = -1.0, -1.0

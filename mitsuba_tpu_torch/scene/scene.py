@@ -11,8 +11,9 @@ import torch
 from ..core.distribution import Discrete1D
 
 # Material type codes (bsdf dispatch table, ref: EBSDFType bsdf.h:233).
-# The port's BSDF module implements codes 0-3 (bsdf.PORTED_FAMILIES);
-# compile_scene rejects the others.
+# The port's BSDF module implements the 14 leaf families, codes 0-12 and
+# 19 (bsdf.PORTED_FAMILIES); compile_scene rejects the composites and the
+# other codes.
 MAT_DIFFUSE = 0
 MAT_CONDUCTOR = 1
 MAT_ROUGH_CONDUCTOR = 2
@@ -44,13 +45,24 @@ EM_ENVMAP = 3
 EM_DIRECTIONAL = 4
 EM_SPOT = 5
 
-# mat_params[M, 24] row layout (see mitsuba_tpu/scene/scene.py): diffuse
-# albedo in [0:3]; conductors eta [0:3], k [3:6], specular reflectance
-# [6:9], alpha [9], alpha_v [10], distribution [11] (0 Beckmann, 1 GGX);
-# dielectric int/ext ior ratio [0], specular reflectance [1:4] and
-# transmittance [4:7]; [12] type code, [13] albedo-tex id, [14]
-# roughness-tex id, [15] two-sided flag, [16] normal/bump-map tex id, [17]
-# bump scale.
+# mat_params[M, 24] row layout (see mitsuba_tpu/scene/scene.py):
+# diffuse, rough diffuse: [0:3] albedo, [9] alpha
+# conductors:       [0:3] eta, [3:6] k, [6:9] specular reflectance, [9]
+#                   alpha_u, [10] alpha_v, [11] distribution (0 Beckmann,
+#                   1 GGX)
+# dielectrics (smooth, rough, thin): [0] int/ext ior ratio, [1:4] specular
+#                   reflectance, [4:7] transmittance, [9:12] as conductors
+# plastics (smooth, rough): [0] ior ratio, [1:4] diffuse reflectance, [4:7]
+#                   specular reflectance, [7] nonlinear, [9:12] as above
+# phong:            [0:3] diffuse refl, [3:6] spec refl, [6] exponent
+# ward:             [0:3] diffuse refl, [3:6] spec refl, [9] alpha_u,
+#                   [10] alpha_v
+# difftrans:        [0:3] transmittance
+# aniso_roughdiffuse: [0:3] albedo, [3:5] mean slope, [5:8] second
+#                   moments, [11] sample visibility
+# all:              [12] type code, [13] albedo-tex id, [14] roughness-tex
+#                   id, [15] two-sided flag, [16] normal/bump-map tex id,
+#                   [17] bump scale.
 N_MAT_PARAMS = 24
 N_MAT_TEX = 2
 

@@ -1,5 +1,8 @@
 """The port's CUDA kernels (the trace kernel, the path megakernels and the
-fused shade kernel) against their plain PyTorch versions, on the card. Every test is marked `cuda` and skips without a card. The file
+fused shade kernel) against their plain PyTorch versions, on the card,
+on the Cornell box, the four-material scene and the leaf-families scene
+(chip_smoke.py). Every test is marked `cuda` and skips without a card.
+The file
 imports neither jax nor the JAX package, so it also runs where only the
 port is installed:
 
@@ -9,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import four_materials
+from chip_smoke import (four_materials, leaf_families_camera,
+                        leaf_families_desc)
 from mitsuba_tpu_torch.accel import dense as tdense
 from mitsuba_tpu_torch.accel import megakernel as tmk
 from mitsuba_tpu_torch.accel import shade_kernel as tshade
@@ -19,7 +23,9 @@ from mitsuba_tpu_torch.integrator.mega import MegaPathTracer
 from mitsuba_tpu_torch.integrator.path import PathTracer, initial_state
 from mitsuba_tpu_torch.scene import presets as tpresets
 from mitsuba_tpu_torch.scene import shapes as tshapes
+from mitsuba_tpu_torch.scene.builder import SceneDesc
 from mitsuba_tpu_torch.scene.builder import compile_scene as tcompile
+from mitsuba_tpu_torch.sensor.sensor import PerspectiveCamera
 
 torch.set_num_threads(2)
 
@@ -138,72 +144,6 @@ def test_mega_rejects_bad_input_on_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bounce", [0, 3])
-def test_mega_bounce_matches_plain_on_card(bounce):
-    """The megakernel rounds as the eager plain bounce does, op for op, so
-    on the card every output row agrees exactly, dead lanes included."""
-    dev = _card()
-    tables, _, pix, samp, st = _mega_inputs(dev)
-    for b in range(bounce):
-        st = tmk.bounce_plain(tables, 5, 8, st, pix, samp, 7, b)[:16]
-    tmk.reset_launches()
-    k = tmk.run_bounce(tables, 5, 8, st, pix, samp, 7, bounce)
-    p = tmk.bounce_plain(tables, 5, 8, st, pix, samp, 7, bounce)
-    assert torch.equal(k, p)
-    assert tmk.LAUNCHES["mega_bounce"] == 1
-
-
-@pytest.mark.cuda
-def test_mega_path_and_persistent_match_plain_on_card():
-    dev = _card()
-    tables, cam, pix, samp, st = _mega_inputs(dev)
-    tmk.reset_launches()
-    k = tmk.run_path(tables, 5, 8, 8, st, pix, samp, 1)
-    assert torch.equal(k, tmk.path_plain(tables, 5, 8, 8, st, pix, samp, 1))
-    pst = torch.cat([st, torch.zeros_like(st[:8])])
-    k = tmk.run_persistent(tables, 5, 8, 3, cam, pst, pix, samp, 1)
-    p = tmk.persistent_plain(tables, 5, 8, 3, cam, pst, pix, samp, 1)
-    assert torch.equal(k, p)
-    assert (k[17] == 3).all()
-    assert tmk.LAUNCHES == {"mega_bounce": 0, "mega_path": 1,
-                            "mega_persistent": 1}
-
-
-@pytest.mark.cuda
-def test_mega_rejects_bad_input_on_card():
-    dev = _card()
-    tables, _, pix, samp, st = _mega_inputs(dev, 8)
-    with pytest.raises(ValueError, match="int32"):
-        tmk.run_bounce(tables, 5, 8, st, pix.long(), samp, 0, 0)
-    with pytest.raises(ValueError, match="shape"):
-        tmk.run_path(tables, 5, 8, 8, st[:12], pix, samp, 0)
-
-
-def _four_materials(dev):
-    """The four-material scene of tests/test_pallas_tpu.py:160-183
-    (sphere(16, 32)) and its camera at (0, 1, 6) along (0, -0.1, -1)."""
-    d = SceneDesc()
-    white = d.add_material(kind="diffuse", albedo=(0.7, 0.7, 0.7))
-    ggx = d.add_material(kind="roughconductor", alpha=0.2)
-    glass = d.add_material(kind="dielectric", int_ior=1.5)
-    mirror = d.add_material(kind="conductor")
-    d.add_shape(tshapes.rectangle(), material=white,
-                to_world=ttf.translate([0, -1, 0])
-                @ ttf.rotate([1, 0, 0], -90) @ ttf.scale([6] * 3))
-    for x, mat in ((-1.5, ggx), (1.5, glass)):
-        d.add_shape(tshapes.sphere(16, 32), to_world=ttf.translate([x, 0, 0]),
-                    material=mat)
-    d.add_shape(tshapes.cube(), material=mirror,
-                to_world=ttf.translate([0, 0, -2]) @ ttf.scale([0.7] * 3))
-    d.add_shape(tshapes.rectangle(), material=white, radiance=(10, 9, 8),
-                to_world=ttf.translate([0, 4, 0])
-                @ ttf.rotate([1, 0, 0], 90) @ ttf.scale([1.5] * 3))
-    cam = PerspectiveCamera(64, 64, 39.0, ttf.look_at(
-        origin=[0, 1, 6], target=[0, 0.9, 5], up=[0, 1, 0]))
-    return tcompile(d, device=dev), cam
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("two_sided,bounce", [(False, 0), (False, 3),
                                               (True, 1), (True, 2)],
                          ids=["0", "3", "two_sided-1", "two_sided-2"])
@@ -253,3 +193,77 @@ def test_fused_path_on_card():
     close = torch.isclose(l_on, l_off, rtol=2e-3, atol=2e-4).all(-1)
     assert close.float().mean().item() > 0.995
     assert abs(int(n_on) - int(n_off)) <= 1e-4 * int(n_off)
+
+
+# ---------------------------------------------------------------------------
+# the leaf-families scene: every leaf BSDF family, two-sided, smooth normals
+# ---------------------------------------------------------------------------
+
+def _agree(k, p):
+    """The share of lanes whose every row is within rel 1e-5 / abs 1e-6."""
+    diff = (k - p).abs()
+    return ((diff <= 1e-6) | (diff <= 1e-5 * p.abs())).all(0).float() \
+        .mean().item()
+
+
+def _leaf(dev, res=64, **kw):
+    """The leaf-families scene at sphere(8, 16), its camera and the camera
+    paths of its res² pixels."""
+    scene = tcompile(leaf_families_desc(SceneDesc, ttf, tshapes, (8, 16),
+                                        **kw), device=dev)
+    cam = leaf_families_camera(PerspectiveCamera, ttf, res)
+    pix = torch.arange(res * res, dtype=torch.int32, device=dev)
+    st = initial_state(*tmk.primary_rays(cam, 0, pix, 0))
+    return scene, cam, pix, torch.zeros_like(pix), st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounce", [0, 3])
+def test_leaf_mega_bounce_matches_plain_on_card(bounce):
+    """mega_bounce against MegaPlainTracer's bounce on every leaf family:
+    every row within rel 1e-5 / abs 1e-6 on >= 99.9% of the lanes."""
+    dev = _card()
+    scene, _, pix, samp, st = _leaf(dev)
+    tables = MegaPathTracer.for_scene(scene, max_depth=6).tables
+    for b in range(bounce):
+        st = tmk.bounce_plain(tables, 5, 6, st, pix, samp, 0, b)[:16]
+    tmk.reset_launches()
+    k = tmk.run_bounce(tables, 5, 6, st, pix, samp, 0, bounce)
+    p = tmk.bounce_plain(tables, 5, 6, st, pix, samp, 0, bounce)
+    assert _agree(k, p) >= 0.999
+    assert tmk.LAUNCHES["mega_bounce"] == 1
+
+
+@pytest.mark.cuda
+def test_leaf_mega_path_and_persistent_match_plain_on_card():
+    dev = _card()
+    scene, cam, pix, samp, st = _leaf(dev)
+    tables = MegaPathTracer.for_scene(scene, max_depth=6).tables
+    k = tmk.run_path(tables, 5, 6, 6, st, pix, samp, 1)
+    assert _agree(k, tmk.path_plain(tables, 5, 6, 6, st, pix, samp, 1)) \
+        >= 0.999
+    pst = torch.cat([st, torch.zeros_like(st[:8])])
+    k = tmk.run_persistent(tables, 5, 6, 2, cam, pst, pix, samp, 1)
+    p = tmk.persistent_plain(tables, 5, 6, 2, cam, pst, pix, samp, 1)
+    assert _agree(k, p) >= 0.999
+    assert (k[17] == 2).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounce", [0, 3])
+def test_leaf_shade_matches_plain_on_card(bounce):
+    """The shade kernel on the leaf-families scene with rough plastic
+    swapped for plastic and every material two-sided."""
+    dev = _card()
+    scene, _, pix, samp, st = _leaf(dev, rough_plastic=False,
+                                    two_sided=True)
+    assert tshade.supports(scene) == (True, "")
+    tracer = PathTracer(max_depth=6).specialized_for(scene)
+    for b in range(bounce):
+        st = tracer.bounce(scene, st, 0, pix, samp, b)[0]
+    packed = tracer.shade_inputs(scene, st, 0, pix, samp, bounce)
+    tshade.reset_launches()
+    k = tshade.run_shade(scene, packed, pix, samp, 0, bounce, 5, 6)
+    p = tshade.shade_plain(scene, packed, pix, samp, 0, bounce, 5, 6)
+    assert _agree(k, p) >= 0.999
+    assert tshade.LAUNCHES["shade"] == 1

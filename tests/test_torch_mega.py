@@ -61,7 +61,7 @@ def _image_rule(img, ref):
 def test_tables_match_jax(cornell):
     """The port's packer holds the JAX packer's values, up to the layout:
     attr rows of the real triangles, emitter rows and meta of the real
-    rows, material columns 0:24."""
+    rows, all 69 material columns."""
     jscene, _, integ = cornell
     jt, tt = jtables(jscene), integ.tables
     assert (jt.tc, jt.m_real, jt.et_real, jt.em_count) == (40, 3, 2, 1)
@@ -73,8 +73,7 @@ def test_tables_match_jax(cornell):
                                   np.asarray(jt.em_rows)[:2])
     np.testing.assert_array_equal(tt.em_meta[:1].numpy(),
                                   np.asarray(jt.em_meta)[:1])
-    np.testing.assert_array_equal(tt.mat.numpy(),
-                                  np.asarray(jt.mat)[:24, :3].T)
+    np.testing.assert_array_equal(tt.mat.numpy(), np.asarray(jt.mat)[:, :3].T)
     # sentinel emissive-triangle rows are never picked
     assert (tt.em_rows[2:, 12] == 1e9).all()
 
@@ -84,27 +83,28 @@ def _with(scene, **fields):
 
 
 def test_supports(cornell):
-    """True on the Cornell box, as in the JAX package; False with the
-    feature's name on scenes the port's subset excludes."""
+    """True on the Cornell box, as in the JAX package, and with a smooth
+    sphere added; False with the feature's name on scenes the port's
+    subset excludes."""
     jscene, tscene, _ = cornell
     assert JMega.supports(jscene) == (True, "")
     assert MegaPathTracer.supports(
         tscene, tpresets.cornell_camera(8, 8), TFilm(8, 8)) == (True, "")
-    conductor = tscene.mat_params.clone()
-    conductor[1, 12] = 1.0
+    mixture = tscene.mat_params.clone()
+    mixture[1, 12] = 13.0
     point = _with(tscene, em_type=torch.tensor([1], dtype=torch.int32))
     desc = tpresets.cornell_box()
     desc.add_shape(tshapes.sphere(4, 8), material=0,
                    to_world=ttf.translate([0.5, 0.4, 0.5]) @ ttf.scale(0.2))
     smooth = tcompile(desc, device="cpu")
     cases = [
-        (_with(tscene, mat_type=torch.tensor([0, 1, 0], dtype=torch.int32),
-               mat_params=conductor), "BSDF families [1] not ported"),
+        (_with(tscene, mat_type=torch.tensor([0, 13, 0], dtype=torch.int32),
+               mat_params=mixture), "BSDF families [13] not ported"),
         (point, "point emitters not ported"),
-        (smooth, "smooth shading normals not ported"),
         (_with(tscene, has_medium=torch.tensor(True)),
          "participating medium"),
     ]
+    assert MegaPathTracer.supports(smooth) == (True, "")
     for scene, reason in cases:
         assert MegaPathTracer.supports(scene) == (False, reason)
         with pytest.raises(NotImplementedError, match=re.escape(reason)):

@@ -117,15 +117,15 @@ def test_scene_from_numpy_round_trip(scenes):
 def test_scene_from_numpy_rejects_unported():
     arrays = _numpy_fields(jcompile(jpresets.cornell_box()))
     arrays["mat_type"] = arrays["mat_type"].copy()
-    arrays["mat_type"][1] = 4                 # plastic
-    with pytest.raises(NotImplementedError, match=r"BSDF families \[4\]"):
+    arrays["mat_type"][1] = 13                # mixture
+    with pytest.raises(NotImplementedError, match=r"BSDF families \[13\]"):
         scene_from_numpy(arrays, device="cpu")
 
 
 def test_compile_scene_rejects_unported():
     d = tpresets.cornell_box()
-    d.add_material(kind="plastic")
-    with pytest.raises(NotImplementedError, match="plastic"):
+    d.add_material(kind="coating")
+    with pytest.raises(NotImplementedError, match="coating"):
         tcompile(d, device="cpu")
     d = tpresets.cornell_box()
     d.add_material(kind="diffuse", albedo_texture=0)

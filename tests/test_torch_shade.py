@@ -240,13 +240,14 @@ def test_compile_rows_match_jax(scenes):
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _jax_kernel_call(woop_shape, k_in, n):
+def _jax_kernel_call(woop_shape, k_in, n, families=(0, 1, 2, 3)):
     """make_shade_kernel's body through pallas_call in interpret mode, one
     128-wide block over n lanes, with the JAX wrapper's specs
-    (shade_kernel.py:250-268); compiled once, the bounce index is data."""
+    (shade_kernel.py:250-268), dispatching `families`; compiled once, the
+    bounce index is data."""
     np8, block = n // 8, n // 8
     kern = jshade.make_shade_kernel(woop_shape[1] // 3, woop_shape[0],
-                                    (0, 1, 2, 3), RR_DEPTH, MAX_DEPTH)
+                                    families, RR_DEPTH, MAX_DEPTH)
     col = lambda rows: pl.BlockSpec((rows, block), lambda r: (0, r),
                                     memory_space=pltpu.VMEM)
     call = pl.pallas_call(
@@ -269,12 +270,13 @@ def _jax_kernel_call(woop_shape, k_in, n):
                      spec((4,), jnp.int32))
 
 
-def _jax_kernel(jscene, packed, pix, samp, bounce):
+def _jax_kernel(jscene, packed, pix, samp, bounce, families=(0, 1, 2, 3)):
     """The JAX kernel body on [K_IN, N] rows, packed as its wrapper packs
     them ([K, N] → [K*8, N/8]) and unpacked back to [K_OUT, N]."""
     k_in, n = packed.shape
     np8 = n // 8
-    call = _jax_kernel_call(tuple(jscene.woop_clusters.shape), k_in, n)
+    call = _jax_kernel_call(tuple(jscene.woop_clusters.shape), k_in, n,
+                            tuple(families))
     as8 = lambda x: jnp.asarray(x.reshape(-1, 8, np8).reshape(-1, np8))
     meta = jnp.asarray([SEED, 0, bounce, 0], jnp.int32)
     live = jnp.asarray([int(packed[tshade.I_ACT].max() > 0.5)], jnp.int32)
@@ -387,17 +389,20 @@ def test_fused_on_matches_off(scenes):
 
 
 def test_fused_on_rejects_unsupported():
-    """A Beckmann or anisotropic rough conductor, or a family the kernel
-    lacks, is turned away instead of shaded as isotropic GGX."""
+    """A Beckmann or anisotropic rough conductor, rough plastic (whose
+    transmittance rows the kernel's input lacks) or a composite is turned
+    away instead of shaded wrong."""
     beck, aniso = (tcompile(four_materials_desc(TDesc, ttf, tshapes, (2, 4),
                                                 ggx=ggx), device="cpu")
                    for ggx in (dict(distribution="beckmann"),
                                dict(alpha_v=0.1)))
-    plastic = beck._replace(mat_type=beck.mat_type.clone().fill_(4))
+    rough_plastic = beck._replace(mat_type=beck.mat_type.clone().fill_(6))
+    mixture = beck._replace(mat_type=beck.mat_type.clone().fill_(13))
     o = torch.zeros((4, 3))
     d = torch.tensor([[0.0, 0.0, -1.0]]).expand(4, 3)
     for scene, reason in ((beck, "Beckmann"), (aniso, "anisotropic"),
-                          (plastic, "BSDF families [4]")):
+                          (rough_plastic, "rough plastic"),
+                          (mixture, "composite BSDF families [13]")):
         assert not tshade.supports(scene)[0]
         with pytest.raises(NotImplementedError, match=re.escape(reason)):
             TPath(fused_shade="on").li(scene, o, d, 0, torch.arange(4))
