@@ -5,11 +5,16 @@
 
 Phases, each of which must pass or the script exits non-zero:
   1. build csrc/trace.cu, csrc/megakernel.cu and csrc/shade.cu with nvcc
-     for sm_90a, one nvcc per source, started together, and print
-     ptxas's register and spill reports;
+     for sm_90a, one nvcc each, all started together, and start phase
+     16's builds in a child process at the lowest CPU priority, so they
+     compile while phases 2-15 run: trace.cu and megakernel.cu under each
+     walk variant of WALK_VARIANTS (build defines of
+     csrc/trace_common.cuh) and shade.cu under "old"; print ptxas's
+     register and spill reports of the default builds (and, in phase 16,
+     of the SIMT walk's), and fail on a spill in any build;
   2. hold the trace kernel against its plain PyTorch version on the Cornell
      box: 256² primary rays and one bounce of NEE shadow rays, closest-hit
-     and any-hit;
+     and any-hit, bit for bit on every lane (as in every trace phase);
   3. the same on the Cornell box plus a 261k-triangle sphere (a 12.6 MB
      cluster table, the regime of the TPU package's 2-D grid kernel);
   4. the eager path at full size: Cornell 256², 8 bounces, 64 spp through
@@ -27,9 +32,9 @@ Phases, each of which must pass or the script exits non-zero:
      against phase 5's plain render, and mega_path against path_plain lane
      by lane;
   8. render_persistent (mega_persistent) at 256², 64 spp against phase 4's
-     eager image and counts, and against persistent_plain lane by lane;
-     then the bench.py scale: 256², 2048 spp, one warm-up pass and two
-     timed passes (counted), with rays/s and the kernel's time by CUDA
+     eager image and counts, and against persistent_plain lane by lane at
+     16 spp; then the bench.py scale: 256², 2048 spp, one warm-up pass and
+     two timed passes (counted), with rays/s and the kernel's time by CUDA
      events beside its bound;
   9. the fused shade kernel (csrc/shade.cu) against its plain version,
      shade_plain, lane by lane on the four-material scene (diffuse
@@ -45,9 +50,11 @@ Phases, each of which must pass or the script exits non-zero:
      the eager image;
  11. the leaf-families scene (every leaf BSDF family, a two-sided pane,
      smooth spheres; 256², 6 bounces): the trace kernel against its plain
-     version on its camera and shadow rays; mega_bounce against its
-     plain version lane by lane at bounce 0 and from the state after 3
-     plain bounces, then one pass bounce by bounce (counted);
+     version on its camera and shadow rays, and on the wavefront of an
+     eager pass after three bounces (its live lanes, in pixel order, and
+     their shadow rays), each timed beside its bound; mega_bounce against
+     its plain version lane by lane at bounce 0 and from the state after
+     3 plain bounces, then one pass bounce by bounce (counted);
  12. render() with MegaPathTracer (mega_path, counted) at 8 spp against
      the eager render, and mega_path against path_plain lane by lane;
  13. render_persistent at 8 spp against the eager image, then one 256-spp
@@ -58,18 +65,38 @@ Phases, each of which must pass or the script exits non-zero:
      plastic swapped for plastic and every material two-sided, then
      one-sided (timed), with the share of lanes tracing a shadow ray;
  15. that one-sided scene's eager path with fused_shade "off" and "on"
-     at 64 spp (counted), both rays/s and a 1-spp profile of each, the
-     images under the image rule, and render_persistent against them.
+     at 16 spp (counted), both rays/s and a 1-spp profile of each, the
+     images under the image rule, and render_persistent against them;
+ 16. the cluster walk's builds against each other: the walk before the
+     warp-cooperative redesign ("old") and the default ("new") in turns
+     old, new, new, old, then each other variant once (the SIMT walk with
+     the padding stop, the cooperative threshold T at 4, 8, 12, 16, 20
+     and 33), on the Cornell 2048-spp mega_persistent launch (with
+     bench-scale rays/s for old and new), the leaf-families 256-spp
+     launch, and the trace kernel on Cornell's and the leaf scene's
+     bounce-0 rays and the leaf scene's bounce-3 wavefront; for old and
+     new also the shade kernel at phases 9 and 14's timed shapes; every
+     build bit-equal to the plain version on every lane
+     (the persistent launches: equal to the default build's, which phases
+     8 and 13 hold to persistent_plain, and on those phases' plain
+     comparisons equal to persistent_plain itself).
 
 The last two lines are the card's name and power limit, as nvidia-smi
 reports them, and {"ok": true, "device": {...}}; the line before them lists
 every ported kernel with its launches, error and times on the Cornell box
 (the shade kernel: the four-material scene), and under "leaf_families"
-the same on the leaf-families scene. Exits non-zero
+the same on the leaf-families scene; the line before that, {"walk": ...},
+phase 16's times by variant. Exits non-zero
 without a CUDA device, and without the package beside it.
 """
+import atexit
 import concurrent.futures
+import contextlib
+import functools
 import json
+import os
+import re
+import signal
 import subprocess
 import sys
 import time
@@ -97,6 +124,7 @@ AABB_ROW_BYTES = 32
 # the megakernel phases
 MEGA_SPP = 8                # render() with MegaPathTracer
 PERSIST_SPP = 64            # render_persistent against the eager image
+PERSIST_PLAIN_SPP = 16      # mega_persistent against persistent_plain
 BENCH_SPP = 2048            # bench.py:33-36: 256², 2048 spp, 2 timed passes
 BENCH_SEEDS = (1, 2)
 # fp32 operations of one megakernel bounce outside its two traces, counted
@@ -129,14 +157,112 @@ LEAF_PERSIST_SPP = 256      # render_persistent, timed
 LEAF_PLAIN_LANES = 16       # persistent_plain on every 16th pixel ...
 LEAF_PLAIN_SPP = 16         # ... at 16 spp
 LEAF_BOUNCES = (0, 3)
+LEAF_EAGER_SPP = 16         # phase 15
+# phase 16: builds of the cluster walk (csrc/trace_common.cuh defines);
+# "new" is the default build
+WALK_VARIANTS = {
+    "old": ("-DMITSUBA_WALK_COOP=0", "-DMITSUBA_WALK_STOP=0"),
+    "new": (),
+    "simt": ("-DMITSUBA_WALK_COOP=0",),
+    "T4": ("-DMITSUBA_WALK_T=4",),
+    "T8": ("-DMITSUBA_WALK_T=8",),
+    "T12": ("-DMITSUBA_WALK_T=12",),
+    "T16": ("-DMITSUBA_WALK_T=16",),
+    "T20": ("-DMITSUBA_WALK_T=20",),
+    "T33": ("-DMITSUBA_WALK_T=33",),
+}
+WALK_TURNS = ("old", "new", "new", "old", "simt", "T4", "T8", "T12",
+              "T16", "T20", "T33")
+WALK_DEFAULT_T = 24         # MITSUBA_WALK_T's default in trace_common.cuh
 # families whose eval runs without the both-above-the-surface test
 TRANSMISSIVE = (5, 12)      # rough dielectric, difftrans
 SHADE_ROWS_IN, SHADE_ROWS_OUT = 50, 16
 SHADE_ROWS_DEAD = 11        # act, p, d, L, eta: what an inactive lane reads
 
+@contextlib.contextmanager
+def walk_build(*defines):
+    """Inside the block the trace, megakernel and shade wrappers launch
+    their builds under these nvcc defines of the cluster walk
+    (csrc/trace_common.cuh, e.g. "-DMITSUBA_WALK_COOP=0"): each module's
+    _library is rebound, and put back on leaving. For phase 16 and the
+    card tests; the port's entry points launch the default builds."""
+    from mitsuba_tpu_torch.accel import megakernel as mk
+    from mitsuba_tpu_torch.accel import shade_kernel as sk
+    from mitsuba_tpu_torch.accel import trace
+    saved = [(m, m._library) for m in (trace, mk, sk)]
+    for m, _ in saved:
+        m._library = lambda m=m: m._bind(m.build(defines)[0])
+    try:
+        yield
+    finally:
+        for m, lib in saved:
+            m._library = lib
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def build_jobs(variants):
+    """Phase 1's nvcc builds: the three libraries, or (variants) the
+    walk variants phase 16 compares: trace.cu and megakernel.cu under
+    each of WALK_VARIANTS, shade.cu under "old"."""
+    from mitsuba_tpu_torch.accel import megakernel as mk
+    from mitsuba_tpu_torch.accel import shade_kernel as sk
+    from mitsuba_tpu_torch.accel import trace
+    if not variants:
+        return [(trace.build, ()), (mk.build, ()), (sk.build, ())]
+    return ([(fn, defines) for defines in WALK_VARIANTS.values() if defines
+             for fn in (trace.build, mk.build)]
+            + [(sk.build, WALK_VARIANTS["old"])])
+
+
+def run_builds(jobs, shown=()):
+    """Each job's build at once, one nvcc each (a cached library is
+    reused); prints the ptxas report of the libraries built with the
+    defines in `shown`, and fails on a missing report or a spill."""
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        builds = [b.result() for b in [pool.submit(fn, defines)
+                                       for fn, defines in jobs]]
+    for (lib, report), (_, defines) in zip(builds, jobs):
+        label = " ".join(defines) or "(default)"
+        if defines in shown:
+            print(f"[build] {lib.name} {label}\n{report}", flush=True)
+        check("registers" in report, f"{lib.name}: no ptxas register report")
+        spills = [m.group(0) for m in re.finditer(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)
+            if m.group(1) != "0" or m.group(2) != "0"]
+        check(not spills, f"{lib.name} {label}: ptxas spills: {spills}")
+
+
+def start_variant_builds():
+    """Phase 1's variant builds in a child process at the lowest CPU
+    priority, so they compile while phases 2-15 run; phase 16 waits for
+    it (join_variant_builds), and the script stops it on any exit."""
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         "import chip_smoke as c; c.run_builds(c.build_jobs(True))"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True, preexec_fn=lambda: os.nice(19))
+
+    def stop():   # the child and its nvcc processes, if still running
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    atexit.register(stop)
+    return proc, time.perf_counter()
+
+
+def join_variant_builds(proc, t0):
+    out = proc.communicate()[0]
+    check(proc.returncode == 0, f"variant builds failed:\n{out}")
+    print(f"[build] walk variants: {len(build_jobs(True))} builds beside "
+          f"phases 2-15, done {time.perf_counter() - t0:.1f} s after they "
+          f"started", flush=True)
+    # cached now: print the SIMT walk's reports, check every build's
+    run_builds(build_jobs(True), shown=(WALK_VARIANTS["simt"],))
 
 
 def card_line():
@@ -175,8 +301,9 @@ def camera_rays(cam, res, seed=0):
     return cam.sample_ray(pos)
 
 
-def shadow_rays(scene, o, d, seed=0):
-    """One NEE shadow ray from each primary hit toward the area light."""
+def shadow_rays(scene, o, d, seed=0, live=None):
+    """One NEE shadow ray from each hit of the rays (o, d) (of the live
+    ones, when `live` is given) toward the area light."""
     from mitsuba_tpu_torch.accel import dense
     from mitsuba_tpu_torch.core import rng
     from mitsuba_tpu_torch.core.math import SHADOW_EPSILON
@@ -185,7 +312,7 @@ def shadow_rays(scene, o, d, seed=0):
                                                      ray_mint)
     n = o.shape[0]
     its = dense.ray_intersect(scene, o, d, ray_mint(o),
-                              torch.full((n,), 1e30, device=DEV))
+                              torch.full((n,), 1e30, device=DEV), live)
     px = torch.arange(n, device=DEV)
     ds = sample_direct(scene, its.p, rng.sample_1d(seed, px, 4),
                        rng.sample_2d(seed, px, 5))
@@ -197,8 +324,9 @@ def shadow_rays(scene, o, d, seed=0):
 
 def compare(label, scene, o, d, mint, maxt, live, errs):
     """Kernel against plain version, closest-hit and any-hit, on the same
-    rays. Limits: hit equal on ≥ 99.99% of lanes; where both hit, the same
-    triangle, t rel ≤ 1e-5, u and v abs ≤ 1e-5."""
+    rays: t, triangle, u, v and both hit flags bit for bit on every lane
+    (the two round alike op for op); the agreement, t and u/v errors are
+    printed too."""
     from mitsuba_tpu_torch.accel import dense, trace
     ki = trace.intersect(scene, o, d, mint, maxt, live)
     pi = dense.ray_intersect(scene, o, d, mint, maxt, live)
@@ -216,16 +344,15 @@ def compare(label, scene, o, d, mint, maxt, live, errs):
     ko = trace.occluded(scene, o, d, mint, maxt, live)
     po = dense.ray_test(scene, o, d, mint, maxt, live)
     agree_any = (ko == po).float().mean().item()
+    bit = all(torch.equal(getattr(ki, f), getattr(pi, f))
+              for f in ("valid", "t", "tri_id", "uv")) and torch.equal(ko, po)
     torch.cuda.synchronize()
     print(f"[{label}] rays {o.shape[0]}  closest: hit agree {agree:.6f}, "
           f"shared hits {n_both}, same tri {tri_ok}, max t rel {t_rel:.3g}, "
           f"max uv abs {uv_abs:.3g}  any: hit agree {agree_any:.6f}, "
-          f"occluded {ko.float().mean().item():.4f}", flush=True)
-    check(agree >= 0.9999, f"{label}: closest-hit agreement {agree}")
-    check(tri_ok, f"{label}: triangle ids differ on shared hits")
-    check(t_rel <= 1e-5, f"{label}: t rel error {t_rel}")
-    check(uv_abs <= 1e-5, f"{label}: u/v abs error {uv_abs}")
-    check(agree_any >= 0.9999, f"{label}: any-hit agreement {agree_any}")
+          f"occluded {ko.float().mean().item():.4f}; bit-equal {bit}",
+          flush=True)
+    check(bit, f"{label}: kernel and plain version differ")
     t_abs = (ki.t[both] - pi.t[both]).abs().max().item() if n_both else 0.0
     errs["trace_closest"] = max(errs["trace_closest"], t_abs, uv_abs)
     errs["trace_any"] = max(errs["trace_any"],
@@ -725,7 +852,8 @@ def shade_bound(label, scene, packed, bounce, rr_depth, fam_ops, card):
 def shade_phases(card):
     """Phases 9 and 10: the fused shade kernel against shade_plain lane by
     lane, then its path through render() against the eager tail. Returns
-    the kernel's entry of the kernels line."""
+    the kernel's entry of the kernels line, and phase 16's shade cases
+    (walk_phase)."""
     from mitsuba_tpu_torch.accel import megakernel as mk
     from mitsuba_tpu_torch.accel import shade_kernel as sk
     from mitsuba_tpu_torch.accel import trace
@@ -744,7 +872,7 @@ def shade_phases(card):
           flush=True)
     pix = torch.arange(CORNELL_RES ** 2, dtype=torch.int32, device=DEV)
     samp = torch.zeros_like(pix)
-    err, timing = 0.0, {}
+    err, timing, walk_cases = 0.0, {}, {}
     # the scene, then the same with every material behind the two-sided
     # adapter (timed on the first only)
     scene_2s = four_materials(CORNELL_RES, two_sided=True)[0]
@@ -760,7 +888,8 @@ def shade_phases(card):
                                            tracer.rr_depth, SHADE_DEPTH)
                 plain = lambda: sk.shade_plain(sc, packed, pix, samp, 0, b,
                                                tracer.rr_depth, SHADE_DEPTH)
-                err = max(err, compare_rows(label, run(), plain()))
+                ref = plain()
+                err = max(err, compare_rows(label, run(), ref))
                 act = packed[sk.I_ACT] > 0.5
                 share = sk.shadow_rays(packed, b, SHADE_DEPTH)[4]
                 flips = ((sk._front(packed, b, SHADE_DEPTH).fsign < 0)
@@ -781,6 +910,9 @@ def shade_phases(card):
                           f"{timing[b]['ms'] * 1e3:.2f} us/launch, plain "
                           f"{timing[b]['plain_ms']:.3f} ms ({card})",
                           flush=True)
+                    walk_cases[f"four-material b{b}"] = (functools.partial(
+                        sk.run_shade, sc, packed, pix, samp, 0, b,
+                        tracer.rr_depth, SHADE_DEPTH), ref)
             st = tracer.bounce(sc, st, 0, pix, samp, b)[0]
     del scene_2s
 
@@ -835,7 +967,7 @@ def shade_phases(card):
             "source": "mitsuba_tpu_torch/csrc/shade.cu",
             "replaces": "mitsuba_tpu/accel/shade_kernel.py:75",
             "launches": l_on["shade"], "max_abs_err": err,
-            **b0, "library_ms": None}
+            **b0, "library_ms": None}, walk_cases
 
 
 def leaf_scene(res, device=DEV, **kw):
@@ -854,7 +986,8 @@ def leaf_phases(card, kernels):
     """Phases 11-15 on the leaf-families scene, 256², 6 bounces. Adds to
     each entry of `kernels` (by name) a "leaf_families" object with the
     kernel's launches on this scene's paths, its error against its plain
-    version and its times and bound here."""
+    version and its times and bound here. Returns what phase 16 runs on
+    this scene (walk_phase)."""
     from mitsuba_tpu_torch.accel import megakernel as mk
     from mitsuba_tpu_torch.accel import shade_kernel as sk
     from mitsuba_tpu_torch.accel import trace
@@ -891,11 +1024,35 @@ def leaf_phases(card, kernels):
     shadow = shadow_rays(scene, o0, d0)
     compare("leaf primary", scene, *primary, errs)
     compare("leaf shadow", scene, *shadow, errs)
-    for name, any_hit, rays in (("trace_closest", False, primary),
-                                ("trace_any", True, shadow)):
+    # the wavefront the eager path traces at bounce 3: every lane in pixel
+    # order with the live ones marked, as PathTracer.bounce hands it to
+    # the trace kernel, and the NEE shadow rays from its hits
+    tracer = PathTracer(max_depth=depth).specialized_for(scene)
+    st = st0
+    for b in range(3):
+        st = tracer.bounce(scene, st, 0, pix, samp, b)[0]
+    o3, d3, live3 = st[0:3].T.contiguous(), st[3:6].T.contiguous(), \
+        st[12] > 0.5
+    bounce3 = (o3, d3, ray_mint(o3), torch.full_like(o3[:, 0], 1e30), live3)
+    shadow3 = shadow_rays(scene, o3, d3, seed=3, live=live3)
+    print(f"[leaf] bounce-3 wavefront: {int(live3.sum())} of "
+          f"{live3.shape[0]} lanes live, {int(shadow3[4].sum())} shadow "
+          f"rays", flush=True)
+    compare("leaf bounce 3", scene, *bounce3, errs)
+    compare("leaf bounce-3 shadow", scene, *shadow3, errs)
+    for name, any_hit, rays, rays3 in (
+            ("trace_closest", False, primary, bounce3),
+            ("trace_any", True, shadow, shadow3)):
         leaf[name] = {"max_abs_err": errs[name],
                       **measure(f"{name}, leaf bounce 0", any_hit, scene,
-                                rays, 3, card)}
+                                rays, 3, card),
+                      "bounce_3": measure(f"{name}, leaf bounce 3", any_hit,
+                                          scene, rays3, 3, card)}
+    walk = {"traces": {"leaf b0 closest": (scene, primary, False),
+                       "leaf b0 any": (scene, shadow, True),
+                       "leaf b3 closest": (scene, bounce3, False),
+                       "leaf b3 any": (scene, shadow3, True)},
+            "shade": {}}
 
     # ---- 11. mega_bounce, lane by lane --------------------------------------
     fam_ops = family_ops(tables)
@@ -1007,7 +1164,12 @@ def leaf_phases(card, kernels):
                      work_pass, int(out[22].sum()), int(out[23].sum()),
                      LEAF_PERSIST_SPP * pix.shape[0], pix.shape[0], 24, 24,
                      tables, card)}
-    del integ, tables, scene
+    walk["persistent"] = {
+        f"leaf {LEAF_PERSIST_SPP} spp": (lambda: run_p(LEAF_PERSIST_SPP),
+                                         out),
+        f"leaf {pix_s.shape[0]} lanes x {LEAF_PLAIN_SPP} spp (plain)": (
+            lambda: mk.run_persistent(tables, rr, depth, LEAF_PLAIN_SPP, cam,
+                                      pst_s, pix_s, samp_s, 0), p)}
 
     # ---- 14. the shade kernel: rough plastic swapped, every material
     # two-sided; then one-sided for the timing --------------------------------
@@ -1029,7 +1191,8 @@ def leaf_phases(card, kernels):
                                            depth)
                 plain = lambda: sk.shade_plain(sc, packed, pix, samp, 0, b,
                                                rr, depth)
-                err = max(err, compare_rows(label, run(), plain()))
+                ref = plain()
+                err = max(err, compare_rows(label, run(), ref))
                 act = packed[sk.I_ACT] > 0.5
                 share = sk.shadow_rays(packed, b, depth)[4]
                 flips = ((sk._front(packed, b, depth).fsign < 0)
@@ -1049,11 +1212,14 @@ def leaf_phases(card, kernels):
                           f"{timing[b]['ms'] * 1e3:.2f} us/launch, plain "
                           f"{timing[b]['plain_ms']:.3f} ms ({card})",
                           flush=True)
+                    walk["shade"][f"leaf b{b}"] = (functools.partial(
+                        sk.run_shade, sc, packed, pix, samp, 0, b, rr,
+                        depth), ref)
             st = tracer.bounce(sc, st, 0, pix, samp, b)[0]
     check(n_flips > 0, "leaf shade: no lane flipped")
     del scene_2s
 
-    # ---- 15. the eager path, tail off and fused, 64 spp ---------------------
+    # ---- 15. the eager path, tail off and fused, 16 spp ---------------------
     results = {}
     for mode in ("off", "on"):
         integ_e = PathTracer(max_depth=depth, fused_shade=mode)
@@ -1062,28 +1228,29 @@ def leaf_phases(card, kernels):
         trace.reset_launches()
         sk.reset_launches()
         t0 = time.perf_counter()
-        img, n = render_fn(scene_s, cam, film, integ_e, spp=SPP, seed=0,
-                           device=DEV)
+        img, n = render_fn(scene_s, cam, film, integ_e, spp=LEAF_EAGER_SPP,
+                           seed=0, device=DEV)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {**trace.LAUNCHES, **sk.LAUNCHES}
         results[mode] = (img, int(n), launches)
-        print(f"[leaf fused {mode}] {res}², {depth} bounces, {SPP} spp: "
-              f"{wall:.3f} s, {int(n)} rays, {int(n) / wall:.4g} rays/s, "
-              f"mean {img.mean().item():.5f}, launches {launches} ({card})",
-              flush=True)
+        print(f"[leaf fused {mode}] {res}², {depth} bounces, "
+              f"{LEAF_EAGER_SPP} spp: {wall:.3f} s, {int(n)} rays, "
+              f"{int(n) / wall:.4g} rays/s, mean {img.mean().item():.5f}, "
+              f"launches {launches} ({card})", flush=True)
         check(bool(torch.isfinite(img).all()), f"leaf fused {mode}: NaN/Inf")
         profile_pass(scene_s, cam, film, integ_e, card)
     (img_off, n_off, l_off), (img_on, n_on, l_on) = results["off"], \
         results["on"]
-    check(l_on["shade"] == depth * SPP,
+    check(l_on["shade"] == depth * LEAF_EAGER_SPP,
           f"leaf shade launched {l_on['shade']} times")
-    image_rule(img_on, img_off, f"leaf fused on vs off, {SPP} spp")
+    image_rule(img_on, img_off, f"leaf fused on vs off, {LEAF_EAGER_SPP} spp")
     check(abs(n_on - n_off) <= 1e-4 * n_off, f"leaf rays {n_on} vs {n_off}")
     # the persistent kernel on the same scene and spp
     integ_s = MegaPathTracer.for_scene(scene_s, max_depth=depth)
-    img_p, n_p = render_persistent(integ_s, cam, SPP, seed=0)
-    image_rule(img_p, img_off, f"leaf render_persistent vs eager, {SPP} spp")
+    img_p, n_p = render_persistent(integ_s, cam, LEAF_EAGER_SPP, seed=0)
+    image_rule(img_p, img_off,
+               f"leaf render_persistent vs eager, {LEAF_EAGER_SPP} spp")
     check(abs(int(n_p) - n_off) <= 1e-4 * n_off,
           f"leaf persistent rays {int(n_p)} vs {n_off}")
     leaf["shade"] = {"launches": l_on["shade"], "max_abs_err": err,
@@ -1093,6 +1260,72 @@ def leaf_phases(card, kernels):
         leaf[name]["launches"] = l_off[name]
     for k in kernels:
         k["leaf_families"] = leaf[k["name"]]
+    return walk
+
+
+def walk_phase(card, cases):
+    """Phase 16: each build of WALK_VARIANTS in the turns of WALK_TURNS on
+    the same inputs. cases["traces"]: name -> (scene, rays, any_hit), each
+    launch held to the plain version bit for bit, then timed;
+    cases["persistent"]: name -> (run, reference output), each launch
+    held equal to its reference bit for bit and timed by CUDA events,
+    but for the entries ending "(plain)": those have persistent_plain's
+    output, come first in each turn, load the build's kernels, and are
+    not timed;
+    cases["bench"]: the bench-scale rays/s, and cases["shade"]: name ->
+    (run, shade_plain's output), each held equal bit for bit and timed,
+    for "old" and "new" (the other variants leave shade.cu as it is).
+    Prints the times by turn and their means by variant, and
+    {"walk": ...}."""
+    from mitsuba_tpu_torch.accel import dense, trace
+    refs = {name: dense.intersect_soup(rays[0], rays[1], scene.woop_o,
+                                       *rays[2:])
+            for name, (scene, rays, _) in cases["traces"].items()}
+    persistent = sorted(cases["persistent"].items(),
+                        key=lambda kv: not kv[0].endswith("(plain)"))
+    turns = []
+    for variant in WALK_TURNS:
+        row = {}
+        with walk_build(*WALK_VARIANTS[variant]):
+            for name, (scene, rays, any_hit) in cases["traces"].items():
+                run = lambda: trace.trace(scene, *rays, any_hit)
+                t, tri, u, v, hit = run()
+                pt, ptri, pu, pv, phit = refs[name]
+                same = torch.equal(hit, phit) and (any_hit or (
+                    torch.equal(t, pt) and torch.equal(tri.long(), ptri)
+                    and torch.equal(u, pu) and torch.equal(v, pv)))
+                check(same, f"walk {variant}: {name} differs from plain")
+                row[f"trace {name}"] = time_ms(run, 20)
+            for name, (run, ref) in persistent:
+                ms, out = events_ms(run)
+                check(torch.equal(out, ref),
+                      f"walk {variant}: {name} differs from its reference")
+                if not name.endswith("(plain)"):
+                    row[f"persistent {name}"] = ms
+            if variant in ("old", "new"):
+                row["cornell bench rays/s"] = cases["bench"]()
+                for name, (run, ref) in cases["shade"].items():
+                    check(torch.equal(run(), ref),
+                          f"walk {variant}: shade {name} differs from plain")
+                    row[f"shade {name}"] = time_ms(run, 50)
+        turns.append({"variant": variant, **row})
+        print(f"[walk] {variant}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in row.items()) + f" ({card})",
+            flush=True)
+    means = {}
+    for variant in WALK_VARIANTS:
+        rows = [t for t in turns if t["variant"] == variant]
+        means[variant] = {k: sum(r[k] for r in rows) / len(rows)
+                          for k in rows[0] if k != "variant"}
+    for name in turns[0]:
+        if name != "variant":
+            print(f"[walk] mean {name}: " + ", ".join(
+                f"{v} {m[name]:.6g}" for v, m in means.items()
+                if name in m), flush=True)
+    print(json.dumps({"walk": {"default_T": WALK_DEFAULT_T, "card": card,
+                               "variants": {k: list(v) for k, v in
+                                            WALK_VARIANTS.items()},
+                               "turns": turns}}), flush=True)
 
 
 def main():
@@ -1119,16 +1352,12 @@ def main():
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
-    # ---- 1. build (one nvcc per source, started together) -------------
+    # ---- 1. build (one nvcc per build, all started together) -----------
+    variant_builds = start_variant_builds()
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        builds = [pool.submit(trace.build), pool.submit(mk.build),
-                  pool.submit(sk.build)]
-        builds = [b.result() for b in builds]
-    print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
-    for lib, report in builds:
-        print(f"[build] {lib.name}\n{report}", flush=True)
-        check("registers" in report, f"{lib.name}: no ptxas register report")
+    run_builds(build_jobs(False), shown=((),))
+    print(f"[build] 3 libraries, {time.perf_counter() - t0:.1f} s",
+          flush=True)
     props = torch.cuda.get_device_properties(0)
     print(f"[build] {props.multi_processor_count} SMs; one lane per pixel "
           f"gives {CORNELL_RES ** 2 // 32 / props.multi_processor_count:.1f}"
@@ -1314,27 +1543,35 @@ def main():
     pst = torch.cat([st0, torch.zeros_like(st0[:8])])
     run_p = lambda spp, seed: mk.run_persistent(
         tables, rr, MAX_DEPTH, spp, cam, pst, pix, samp, seed)
-    k = run_p(PERSIST_SPP, 0)
+    k = run_p(PERSIST_PLAIN_SPP, 0)
     plain_ms, pl = events_ms(lambda: mk.persistent_plain(
-        tables, rr, MAX_DEPTH, PERSIST_SPP, cam, pst, pix, samp, 0))
-    persist_err = compare_rows(f"mega_persistent, {PERSIST_SPP} spp", k, pl)
+        tables, rr, MAX_DEPTH, PERSIST_PLAIN_SPP, cam, pst, pix, samp, 0))
+    persist_err = compare_rows(f"mega_persistent, {PERSIST_PLAIN_SPP} spp",
+                               k, pl)
+    k = run_p(PERSIST_SPP, 0)
     persist_row = {
         "ms": time_ms(lambda: run_p(PERSIST_SPP, 0), 5, warmup=1),
         "plain_ms": plain_ms,
+        "plain_shape": f"{pix.shape[0]} lanes x {PERSIST_PLAIN_SPP} spp",
+        "ms_at_plain_shape": time_ms(lambda: run_p(PERSIST_PLAIN_SPP, 0), 5,
+                                     warmup=1),
         **mega_bound(f"mega_persistent, {PERSIST_SPP} spp", work_pass,
                      int(k[22].sum()), int(k[23].sum()),
                      PERSIST_SPP * pix.shape[0], pix.shape[0], 24, 24,
                      tables, card)}
 
     # the bench.py scale: one warm-up pass, two timed passes
+    def bench_passes():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        passes = [render_persistent(integ, cam, BENCH_SPP, seed=s)
+                  for s in BENCH_SEEDS]
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, passes
+
     render_persistent(integ, cam, BENCH_SPP, seed=0)
-    torch.cuda.synchronize()
     mk.reset_launches()
-    t0 = time.perf_counter()
-    bench = [render_persistent(integ, cam, BENCH_SPP, seed=s)
-             for s in BENCH_SEEDS]
-    torch.cuda.synchronize()
-    bench_wall = time.perf_counter() - t0
+    bench_wall, bench = bench_passes()
     persist_launches = mk.LAUNCHES["mega_persistent"]
     bench_rays = sum(int(n) for _, n in bench)
     print(f"[bench] Cornell {CORNELL_RES}², {MAX_DEPTH} bounces, {BENCH_SPP}"
@@ -1348,8 +1585,9 @@ def main():
     for i, _ in bench:
         check(bool(torch.isfinite(i).all()) and 0.2 <= i.mean().item() <= 0.3,
               "bench image not finite or mean outside [0.2, 0.3]")
+    bench_out = {}
     for s in BENCH_SEEDS:
-        ms_s, out = events_ms(lambda: run_p(BENCH_SPP, s))
+        ms_s, out = bench_out[s] = events_ms(lambda: run_p(BENCH_SPP, s))
         rays_s = int(out[22].sum()) + int(out[23].sum())
         print(f"[bench] mega_persistent launch, seed {s}: {ms_s:.4f} ms "
               f"(CUDA events), {rays_s} rays, {rays_s / ms_s * 1e3:.6g} "
@@ -1365,8 +1603,25 @@ def main():
         "launches": persist_launches, "max_abs_err": persist_err,
         **persist_row, "library_ms": None})
 
-    kernels.append(shade_phases(card))
-    leaf_phases(card, kernels)
+    shade_row, shade_walk = shade_phases(card)
+    kernels.append(shade_row)
+    walk = leaf_phases(card, kernels)
+    walk["shade"].update(shade_walk)
+    s1 = BENCH_SEEDS[0]
+    walk["traces"].update({"cornell b0 closest": (scene, primary, False),
+                           "cornell b0 any": (scene, shadow, True)})
+    walk["persistent"].update({
+        f"cornell {PERSIST_PLAIN_SPP} spp (plain)": (
+            lambda: run_p(PERSIST_PLAIN_SPP, 0), pl),
+        f"cornell {BENCH_SPP} spp, seed {s1}": (
+            lambda: run_p(BENCH_SPP, s1), bench_out[s1][1])})
+    def bench_rate():
+        wall, passes = bench_passes()
+        return sum(int(n) for _, n in passes) / wall
+
+    walk["bench"] = bench_rate
+    join_variant_builds(*variant_builds)
+    walk_phase(card, walk)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -111,6 +111,7 @@ class MegaTables:
     em_cdf: torch.Tensor     # [E+1] the emitter pick CDF (core/distribution)
     em_count: int
     n_tris: int              # real triangles (nonzero-area prefix)
+    real_tris: int           # the walk's stop (trace.real_tris, checked)
     m_real: int
     et_real: int             # real emissive-triangle rows (at least 1)
     scene: SceneData
@@ -224,6 +225,7 @@ def build_mega_tables(scene: SceneData) -> MegaTables:
         woop=scene.woop_clusters, aabb=scene.cluster_aabb, attr=f32(attr_p),
         mat=f32(mat), em_rows=f32(rows), em_meta=f32(meta),
         em_cdf=scene.em_pmf.cdf.contiguous(), em_count=n_em, n_tris=n_real,
+        real_tris=trace.real_tris(scene),
         m_real=mat.shape[0], et_real=max(et, 1), scene=scene,
         plain_scene=scene._replace(tri_attr=f32(corners)))
 
@@ -1072,23 +1074,28 @@ def bsdf_sample(mat, wix, wiy, wiz, u0, u1, uc, families=None):
 # kernels: build, bind, launch
 # ---------------------------------------------------------------------------
 
-def build():
-    """Build csrc/megakernel.cu (trace.build_library). The file is
-    compiled with -fmad=false, so every a*b+c rounds twice as PyTorch's
-    eager ops do."""
+def build(defines: tuple = ()):
+    """Build csrc/megakernel.cu (trace.build_library) with these walk
+    defines (trace.build). The file is compiled with -fmad=false, so every
+    a*b+c rounds twice as PyTorch's eager ops do."""
     return trace.build_library("megakernel.cu", "mitsuba_mega",
-                               ("-fmad=false",))
+                               ("-fmad=false",) + tuple(defines))
 
 
-_TABLE_ARGS = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]   # woop aabb C
+_TABLE_ARGS = ([ctypes.c_void_p, ctypes.c_void_p,        # woop aabb
+                ctypes.c_int, ctypes.c_int]              # C, real tris
                + [ctypes.c_void_p, ctypes.c_void_p]      # attr mat
                + [ctypes.c_void_p, ctypes.c_int]         # em_rows et_real
                + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int])  # meta cdf E
 
 
-@functools.lru_cache(maxsize=None)
 def _library():
-    lib = ctypes.CDLL(str(build()[0]))
+    return _bind(build()[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _bind(path):
+    lib = ctypes.CDLL(str(path))
     run = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_uint32]
     lib.mitsuba_mega_bounce.argtypes = (_TABLE_ARGS + run
                                         + [ctypes.c_int] * 3
@@ -1137,9 +1144,10 @@ def _launch(name, tables: MegaTables, state, rows_in, rows_out, pixel,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(tables.woop.data_ptr(), tables.aabb.data_ptr(), c,
-                 tables.attr.data_ptr(), tables.mat.data_ptr(),
-                 tables.em_rows.data_ptr(), tables.et_real,
-                 tables.em_meta.data_ptr(), tables.em_cdf.data_ptr(),
+                 tables.real_tris, tables.attr.data_ptr(),
+                 tables.mat.data_ptr(), tables.em_rows.data_ptr(),
+                 tables.et_real, tables.em_meta.data_ptr(),
+                 tables.em_cdf.data_ptr(),
                  tables.em_count, state.data_ptr(), out.data_ptr(),
                  pixel.data_ptr(), samp.data_ptr(), n,
                  seed & 0xFFFFFFFF, *ints, *extra, stream)

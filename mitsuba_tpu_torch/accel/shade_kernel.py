@@ -279,17 +279,23 @@ def shade_plain(scene: SceneData, packed, pixel, samp, seed: int,
 # the kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-def build():
-    """Build csrc/shade.cu (trace.build_library), with -fmad=false so
-    every a*b+c rounds twice, as shade_plain's eager ops do."""
-    return trace.build_library("shade.cu", "mitsuba_shade", ("-fmad=false",))
+def build(defines: tuple = ()):
+    """Build csrc/shade.cu (trace.build_library) with these walk defines
+    (trace.build), and with -fmad=false so every a*b+c rounds twice, as
+    shade_plain's eager ops do."""
+    return trace.build_library("shade.cu", "mitsuba_shade",
+                               ("-fmad=false",) + tuple(defines))
+
+
+def _library():
+    return _bind(build()[0])
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    fn = ctypes.CDLL(str(build()[0])).mitsuba_shade
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p] * 4
+def _bind(path):
+    fn = ctypes.CDLL(str(path)).mitsuba_shade
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_int] + [ctypes.c_void_p] * 4
                    + [ctypes.c_int, ctypes.c_uint32] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -317,13 +323,15 @@ def run_shade(scene: SceneData, packed, pixel, samp, seed: int, bounce: int,
     check(woop, "woop_clusters", torch.float32,
           (c, 3 * trace.TRIS_PER_CLUSTER, 4), dev, align=16)
     check(aabb, "cluster_aabb", torch.float32, (c, 8), dev, align=16)
+    n_real = trace.real_tris(scene)
     out = torch.empty((K_OUT, n), dtype=torch.float32, device=dev)
     fn = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(woop.data_ptr(), aabb.data_ptr(), c, packed.data_ptr(),
-                 out.data_ptr(), pixel.data_ptr(), samp.data_ptr(), n,
-                 seed & 0xFFFFFFFF, bounce, rr_depth, max_depth, stream)
+        err = fn(woop.data_ptr(), aabb.data_ptr(), c, n_real,
+                 packed.data_ptr(), out.data_ptr(), pixel.data_ptr(),
+                 samp.data_ptr(), n, seed & 0xFFFFFFFF, bounce, rr_depth,
+                 max_depth, stream)
     if err != 0:
         raise RuntimeError(f"shade kernel launch failed: cudaError_t {err}")
     LAUNCHES["shade"] += 1

@@ -7,6 +7,10 @@ tensors and the plain version, accel/dense.py, for CPU tensors. There is no
 fallback: on a CUDA tensor a failed build or launch raises. The kernel is
 built from the repository's sources at first use, with nvcc into
 build/kernels/, and bound through a plain C interface with ctypes.
+
+The kernels' cluster walk stops at the scene's last real triangle
+(`real_tris`, checked once per table): the builder's padding follows it
+and never hits.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -109,6 +114,42 @@ def build_cluster_order(aabb: np.ndarray):
     return meta, order, odist
 
 
+def padding_start(woop_clusters: torch.Tensor) -> int:
+    """The first triangle of the [C, 3*64, 4] Woop table from which on
+    every triangle is padding: its z-row (w2) has a zero linear part, so
+    d'_z = 0 for every ray and it never hits."""
+    wz = woop_clusters[:, 2 * TRIS_PER_CLUSTER:, :3]
+    real = (wz != 0).any(-1).reshape(-1).nonzero()
+    return int(real[-1]) + 1 if real.numel() else 0
+
+
+_checked: dict = {}    # id(woop table) -> (weakref to it, checked count)
+
+
+def real_tris(scene: SceneData) -> int:
+    """The scene's count of real triangles, where the kernels' cluster
+    walk stops. Raises ValueError unless every triangle of the Woop table
+    past it is padding that never hits (padding_start); checked once per
+    table."""
+    n, woop = scene.n_real_tris, scene.woop_clusters
+    if n is None:
+        raise ValueError("scene has no real triangle count (n_real_tris)")
+    seen = _checked.get(id(woop))
+    if seen is not None and seen[0]() is woop and seen[1] == n:
+        return n
+    cap = woop.shape[0] * TRIS_PER_CLUSTER
+    if not 0 <= n <= cap:
+        raise ValueError(f"n_real_tris {n} outside the table's 0..{cap}")
+    first_pad = padding_start(woop)
+    if first_pad > n:
+        raise ValueError(
+            f"triangle {first_pad - 1} of the Woop table can hit but lies "
+            f"past the scene's {n} real triangles: the walk would miss it")
+    key = id(woop)
+    _checked[key] = (weakref.ref(woop, lambda _: _checked.pop(key, None)), n)
+    return n
+
+
 # ---------------------------------------------------------------------------
 # build and bind
 # ---------------------------------------------------------------------------
@@ -152,18 +193,23 @@ def build_library(source: str, stem: str, extra_flags: tuple = ()
     return lib, report
 
 
-def build() -> tuple[Path, str]:
-    """Build csrc/trace.cu (see build_library)."""
-    return build_library("trace.cu", "mitsuba_trace")
+def build(defines: tuple = ()) -> tuple[Path, str]:
+    """Build csrc/trace.cu (see build_library) with these nvcc defines of
+    the cluster walk (csrc/trace_common.cuh; the wrappers launch the
+    default build)."""
+    return build_library("trace.cu", "mitsuba_trace", defines)
+
+
+def _library():
+    return _bind(build()[0])
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    lib = ctypes.CDLL(str(build()[0]))
-    fn = lib.mitsuba_trace
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_void_p] * 6)
+def _bind(path: Path):
+    fn = ctypes.CDLL(str(path)).mitsuba_trace
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6)
     fn.restype = ctypes.c_int
     return fn
 
@@ -192,6 +238,7 @@ def trace(scene: SceneData, o, d, mint, maxt, live, any_hit: bool):
     check_tensor(woop, "woop_clusters", torch.float32,
            (c, 3 * TRIS_PER_CLUSTER, 4), dev, align=16)
     check_tensor(aabb, "cluster_aabb", torch.float32, (c, 8), dev, align=16)
+    n_real = real_tris(scene)
     for x, name in ((o, "o"), (d, "d")):
         check_tensor(x, name, torch.float32, (n, 3), dev)
     for x, name in ((mint, "mint"), (maxt, "maxt")):
@@ -210,9 +257,9 @@ def trace(scene: SceneData, o, d, mint, maxt, live, any_hit: bool):
     fn = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ptr(woop), ptr(aabb), c, ptr(o), ptr(d), ptr(mint),
-                 ptr(maxt), ptr(live), n, int(any_hit), ptr(t), ptr(tri),
-                 ptr(u), ptr(v), ptr(hit), stream)
+        err = fn(ptr(woop), ptr(aabb), c, n_real, ptr(o), ptr(d),
+                 ptr(mint), ptr(maxt), ptr(live), n, int(any_hit), ptr(t),
+                 ptr(tri), ptr(u), ptr(v), ptr(hit), stream)
     if err != 0:
         raise RuntimeError(f"trace kernel launch failed: cudaError_t {err}")
     LAUNCHES["trace_any" if any_hit else "trace_closest"] += 1

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .accel.trace import padding_start
 from .bsdf.bsdf import PORTED_FAMILIES
 from .core.distribution import Discrete1D
 from .device import resolve_device
@@ -36,13 +37,17 @@ def _check_supported(a: dict):
 
 def scene_from_numpy(arrays: dict, device="cuda") -> S.SceneData:
     """SceneData on `device` from a dict of numpy arrays keyed by field
-    name; missing optional fields and None values stay None."""
+    name; missing optional fields and None values stay None, but for
+    n_real_tris, which a missing value derives from the Woop table (the
+    triangles before its trailing padding, trace.padding_start)."""
     dev = resolve_device(device)
     _check_supported(arrays)
     fields = {}
     for name in S.SceneData._fields:
         value = arrays.get(name)
-        if value is None:
+        if name == "n_real_tris":
+            fields[name] = None if value is None else int(value)
+        elif value is None:
             fields[name] = None
         elif name == "em_pmf":
             fields[name] = Discrete1D(*(
@@ -50,4 +55,6 @@ def scene_from_numpy(arrays: dict, device="cuda") -> S.SceneData:
                 for k in Discrete1D._fields))
         else:
             fields[name] = torch.tensor(np.asarray(value), device=dev)
+    if fields["n_real_tris"] is None and fields["woop_clusters"] is not None:
+        fields["n_real_tris"] = padding_start(fields["woop_clusters"])
     return S.SceneData(**fields)

@@ -16,9 +16,11 @@
 // gone: a lane inactive on entry writes the pass-through rows of the JAX
 // kernel's dead blocks. A per-lane branch on the material code runs only
 // that family's arithmetic (bsdf_common.cuh). The shadow ray is traced,
-// with the trace kernel's own any-hit cluster walk (trace_common.cuh), only
-// for lanes that contribute (the JAX kernel's contrib0), so delta
-// materials never trace one.
+// with the SIMT any-hit cluster walk of trace_common.cuh (trace_ray, which
+// stops at the last real triangle), only for lanes that contribute (the
+// JAX kernel's contrib0), so delta materials never trace one; the warp
+// walk of the other kernels needs every lane at the call, and here the
+// trace sits inside that divergent branch.
 //
 // What bounds it on the H100: at the Cornell-like shapes of the main path
 // the 264 bytes of rows per lane move in a few microseconds at 3.35 TB/s,
@@ -46,6 +48,7 @@ using namespace mitsuba_path;
 using mitsuba_bsdf::BsdfSample;
 using mitsuba_bsdf::bsdf_eval_pdf;
 using mitsuba_bsdf::bsdf_sample;
+using mitsuba_walk::Ray;
 using mitsuba_walk::trace_ray;
 
 // input rows (accel/shade_kernel.py I_*)
@@ -70,7 +73,7 @@ __device__ __forceinline__ float max_abs(float x, float y, float z) {
 
 __global__ void __launch_bounds__(kThreads)
 shade(const float4* __restrict__ woop, const float* __restrict__ aabb,
-      int n_clusters, const float* __restrict__ in, float* __restrict__ out,
+      int tris, const float* __restrict__ in, float* __restrict__ out,
       const int* __restrict__ pixel, const int* __restrict__ samp, int n,
       uint32_t seed, int bounce, int rr_depth, int max_depth) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -131,8 +134,9 @@ shade(const float4* __restrict__ woop, const float* __restrict__ aabb,
   if (contrib) {
     const float smint = F32(1e-4) * (1.f + max_abs(sox, soy, soz));
     const float smaxt = row(kNDist) * F32(1.0 - 1e-3);
-    occluded = trace_ray<true>(woop, aabb, n_clusters, sox, soy, soz, ldx,
-                               ldy, ldz, smint, smaxt).found;
+    occluded = trace_ray<true>(woop, aabb, tris, Ray{sox, soy, soz, ldx, ldy,
+                                                     ldz, smint, smaxt})
+                   .found;
   }
   const float w_nee = row(kNDelta) > 0.5f ? 1.f : mis_power(pdf_nee, pdf_fwd);
   const float cgate = (contrib && !occluded ? 1.f : 0.f) * w_nee;
@@ -195,18 +199,20 @@ shade(const float4* __restrict__ woop, const float* __restrict__ aabb,
 
 // C entry point (ctypes, accel/shade_kernel.py). Pointers are device
 // pointers: woop [C, 3*64] float4, aabb [C, 8], in [50, n], out [16, n],
-// pixel and samp [n] int32. Launches on `stream` and returns the
-// cudaError_t of the launch.
+// pixel and samp [n] int32; the walk covers the first n_tris triangles
+// (the real ones: padding follows them). Launches on `stream` and returns
+// the cudaError_t of the launch.
 extern "C" int mitsuba_shade(const void* woop, const void* aabb,
-                             int n_clusters, const void* in, void* out,
-                             const void* pixel, const void* samp, int n,
-                             uint32_t seed, int bounce, int rr_depth,
+                             int n_clusters, int n_tris, const void* in,
+                             void* out, const void* pixel, const void* samp,
+                             int n, uint32_t seed, int bounce, int rr_depth,
                              int max_depth, void* stream) {
   if (n <= 0) return 0;
   shade<<<(n + kThreads - 1) / kThreads, kThreads, 0,
           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(woop), static_cast<const float*>(aabb),
-      n_clusters, static_cast<const float*>(in), static_cast<float*>(out),
+      mitsuba_walk::walk_tris(n_tris, n_clusters),
+      static_cast<const float*>(in), static_cast<float*>(out),
       static_cast<const int*>(pixel), static_cast<const int*>(samp), n, seed,
       bounce, rr_depth, max_depth);
   return static_cast<int>(cudaGetLastError());

@@ -340,5 +340,5 @@ def compile_scene(desc: SceneDesc, cluster_size: int = 512,
         med_sggx=f32(np.zeros(6)), med_fiber=f32(np.zeros(3)),
         cluster_aabb=f32(cluster_aabb),
         cluster_meta=opt(cl_meta, f32), cluster_order=opt(cl_order, i32),
-        cluster_odist=opt(cl_odist, f32),
+        cluster_odist=opt(cl_odist, f32), n_real_tris=n_tris,
     )

@@ -147,6 +147,10 @@ class SceneData(NamedTuple):
     cluster_meta: torch.Tensor = None    # [C, 8] f32
     cluster_order: torch.Tensor = None   # [C, C] i32
     cluster_odist: torch.Tensor = None   # [C, C] f32
+    # real triangles: the padding that fills the last clusters follows
+    # them and never hits, so the kernels' walk stops there
+    # (accel/trace.py real_tris)
+    n_real_tris: int = None
 
     @property
     def n_tris(self):

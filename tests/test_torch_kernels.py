@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from chip_smoke import (four_materials, leaf_families_camera,
-                        leaf_families_desc)
+                        leaf_families_desc, walk_build)
 from mitsuba_tpu_torch.accel import dense as tdense
 from mitsuba_tpu_torch.accel import megakernel as tmk
 from mitsuba_tpu_torch.accel import shade_kernel as tshade
@@ -22,6 +22,7 @@ from mitsuba_tpu_torch.core import transform as ttf
 from mitsuba_tpu_torch.integrator.mega import MegaPathTracer
 from mitsuba_tpu_torch.integrator.path import PathTracer, initial_state
 from mitsuba_tpu_torch.scene import presets as tpresets
+from mitsuba_tpu_torch.integrator.common import ray_mint
 from mitsuba_tpu_torch.scene import shapes as tshapes
 from mitsuba_tpu_torch.scene.builder import SceneDesc
 from mitsuba_tpu_torch.scene.builder import compile_scene as tcompile
@@ -267,3 +268,124 @@ def test_leaf_shade_matches_plain_on_card(bounce):
     p = tshade.shade_plain(scene, packed, pix, samp, 0, bounce, 5, 6)
     assert _agree(k, p) >= 0.999
     assert tshade.LAUNCHES["shade"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the cluster walk: the warp-cooperative build and the SIMT build
+# (csrc/trace_common.cuh, MITSUBA_WALK_COOP=0), each bit-equal to dense.py
+# ---------------------------------------------------------------------------
+
+WALKS = {"coop": (), "simt": ("-DMITSUBA_WALK_COOP=0",)}
+
+
+def _assert_walk_equal(scene, o, d, mint, maxt, live, walk):
+    """The trace kernel under `walk`, closest hit and any hit, against the
+    plain version bit for bit on every lane."""
+    pt, ptri, pu, pv, phit = tdense.intersect_soup(o, d, scene.woop_o, mint,
+                                                   maxt, live)
+    with walk_build(*WALKS[walk]):
+        t, tri, u, v, hit = ttrace.trace(scene, o, d, mint, maxt, live,
+                                         False)
+        any_hit = ttrace.trace(scene, o, d, mint, maxt, live, True)[4]
+    assert torch.equal(hit, phit)
+    assert torch.equal(t, pt) and torch.equal(tri.long(), ptri)
+    assert torch.equal(u, pu) and torch.equal(v, pv)
+    assert torch.equal(any_hit, phit)
+    return tri, hit
+
+
+def _leaf_rays(dev, n, seed=0):
+    """n shuffled camera rays of the leaf-families scene (res 257 at most)
+    with a live mask that has holes, and shadow-like rays from their hits
+    toward a point under the light (finite maxt)."""
+    scene, cam, pix, _, st = _leaf(dev, res=257)
+    perm = torch.as_tensor(np.random.RandomState(seed).permutation(
+        pix.shape[0])[:n], device=dev)
+    o, d = st[0:3, perm].T.contiguous(), st[3:6, perm].T.contiguous()
+    idx = torch.arange(n, device=dev)
+    live = (idx % 3 != 0) & ((idx < n // 4) | (idx >= n // 2))
+    maxt = torch.full_like(o[:, 0], 1e30)
+    its = tdense.ray_intersect(scene, o, d, ray_mint(o), maxt, live)
+    so = torch.where(its.valid[:, None], its.p + 1e-3 * its.ng, o)
+    sd = torch.tensor([0.3, 3.9, -0.2], device=dev) - so
+    dist = sd.norm(dim=-1)
+    sd = (sd / dist[:, None]).contiguous()
+    return scene, (o, d, ray_mint(o), maxt, live), \
+        (so.contiguous(), sd, ray_mint(so), dist * 0.999, its.valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", list(WALKS))
+@pytest.mark.parametrize("n", [33, 100, 65537])
+def test_walk_matches_plain_on_card(n, walk):
+    """Ragged ray counts (the last warp partly empty), dead lanes, lanes in
+    shuffled order on the leaf-families scene, so warps diverge across
+    clusters: both walks give the plain version's hits bit for bit."""
+    dev = _card()
+    scene, camera, shadow = _leaf_rays(dev, n)
+    _assert_walk_equal(scene, *camera, walk)
+    _assert_walk_equal(scene, *shadow, walk)
+
+
+def _tie_scene(dev):
+    """Coincident triangles in the plane z = 0, among 120 small ones far
+    below: A at triangles 5, 37 (one cluster, lanes 5 and 5 + 32) and 70
+    (the next cluster); B at 40 (lane 8 + 32 of cluster 0) and 66 (lane 2
+    of cluster 1); C at 80 and 112 (lanes 16 and 16 + 32 of cluster 1).
+    120 triangles keep the author's order (Morton order starts past 256)."""
+    rs = np.random.RandomState(3)
+    tris = rs.rand(120, 3, 3) * 0.1 + np.array([0.0, 0.0, -50.0])
+    quad = lambda x0: np.array([[x0, -1.0, 0.0], [x0 + 2.0, -1.0, 0.0],
+                                [x0, 1.0, 0.0]])
+    for ids, x0 in (((5, 37, 70), -3.0), ((40, 66), -1.0), ((80, 112), 1.0)):
+        for i in ids:
+            tris[i] = quad(x0)
+    desc = SceneDesc()
+    desc.add_shape(tshapes.Mesh(tris.reshape(-1, 3),
+                                np.arange(360).reshape(120, 3)),
+                   material=desc.add_material(kind="diffuse"))
+    return tcompile(desc, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", list(WALKS))
+@pytest.mark.parametrize("sparse", [False, True], ids=["all", "sparse"])
+def test_walk_ties_on_card(walk, sparse):
+    """Rays that meet two or three coincident triangles at one t report the
+    lowest index (5, 40 or 80), within a cluster and across clusters. With
+    one lane in eight live, few lanes of a warp enter a cluster and the
+    cooperative branch scans it; with all live, the lanes scan it."""
+    dev = _card()
+    scene = _tie_scene(dev)
+    assert ttrace.real_tris(scene) == 120
+    rs = np.random.RandomState(4)
+    n = 4096
+    o = np.stack([rs.uniform(-3.5, 3.5, n), rs.uniform(-1.5, 1.5, n),
+                  np.full(n, 2.0)], -1).astype(np.float32)
+    d = np.tile(np.float32([0.0, 0.0, -1.0]), (n, 1))
+    o, d = (torch.as_tensor(x, device=dev) for x in (o, d))
+    live = torch.arange(n, device=dev) % (8 if sparse else 1) == 0
+    maxt = torch.full((n,), 10.0, device=dev)
+    tri, hit = _assert_walk_equal(scene, o, d, ray_mint(o), maxt, live,
+                                  walk)
+    assert set(tri[hit].tolist()) == {5, 40, 80}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", list(WALKS))
+def test_walk_persistent_shuffled_on_card(walk):
+    """mega_persistent on pixels in shuffled order (each warp's lanes far
+    apart, at different bounces) against MegaPlainTracer's loop, every
+    output row bit for bit, under both walks."""
+    dev = _card()
+    scene, cam, pix, samp, _ = _leaf(dev)
+    perm = torch.as_tensor(np.random.RandomState(5).permutation(
+        pix.shape[0]), device=dev)
+    pix = pix[perm].contiguous()
+    st = initial_state(*tmk.primary_rays(cam, 0, pix, 0))
+    tables = MegaPathTracer.for_scene(scene, max_depth=6).tables
+    pst = torch.cat([st, torch.zeros_like(st[:8])])
+    with walk_build(*WALKS[walk]):
+        k = tmk.run_persistent(tables, 5, 6, 2, cam, pst, pix, samp, 1)
+    p = tmk.persistent_plain(tables, 5, 6, 2, cam, pst, pix, samp, 1)
+    assert torch.equal(k, p)

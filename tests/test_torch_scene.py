@@ -13,8 +13,11 @@ from mitsuba_tpu.emitter import emitter as jem
 from mitsuba_tpu.film.film import Film as JFilm
 from mitsuba_tpu.scene import presets as jpresets
 from mitsuba_tpu.scene import shapes as jshapes
+from chip_smoke import four_materials_desc, leaf_families_desc
+from mitsuba_tpu.scene.builder import SceneDesc as JSceneDesc
 from mitsuba_tpu.scene.builder import compile_scene as jcompile
 from mitsuba_tpu_torch import device as tdevice
+from mitsuba_tpu_torch.accel import trace as ttrace
 from mitsuba_tpu_torch.bsdf import bsdf as tbsdf
 from mitsuba_tpu_torch.convert import scene_from_numpy
 from mitsuba_tpu_torch.core import transform as ttf
@@ -22,6 +25,7 @@ from mitsuba_tpu_torch.emitter import emitter as tem
 from mitsuba_tpu_torch.film.film import Film as TFilm
 from mitsuba_tpu_torch.scene import presets as tpresets
 from mitsuba_tpu_torch.scene import shapes as tshapes
+from mitsuba_tpu_torch.scene.builder import SceneDesc as TSceneDesc
 from mitsuba_tpu_torch.scene.builder import compile_scene as tcompile
 
 torch.set_num_threads(2)
@@ -120,6 +124,56 @@ def test_scene_from_numpy_rejects_unported():
     arrays["mat_type"][1] = 13                # mixture
     with pytest.raises(NotImplementedError, match=r"BSDF families \[13\]"):
         scene_from_numpy(arrays, device="cpu")
+
+
+def _padding_descs(name):
+    """The scene `name` described in both packages (small spheres)."""
+    out = []
+    for presets, shapes, tf, desc_cls in (
+            (jpresets, jshapes, jtf, JSceneDesc),
+            (tpresets, tshapes, ttf, TSceneDesc)):
+        if name == "cornell":
+            out.append(presets.cornell_box())
+        elif name == "four_materials":
+            out.append(four_materials_desc(desc_cls, tf, shapes, (8, 16)))
+        else:
+            out.append(leaf_families_desc(desc_cls, tf, shapes, (6, 12)))
+    return out
+
+
+@pytest.mark.parametrize("name", ["cornell", "four_materials",
+                                  "leaf_families"])
+def test_padding_follows_real_triangles(name):
+    """The builder pads only past its real triangles, with Woop rows that
+    never hit: the count where the kernels' walk stops passes the
+    wrappers' check (trace.real_tris) and covers every triangle that can
+    hit. A JAX scene carried across derives a count that passes too."""
+    jd, td = _padding_descs(name)
+    scene = tcompile(td, device="cpu")
+    n = sum(len(shape.mesh.faces) for shape in td.shapes)
+    assert ttrace.real_tris(scene) == scene.n_real_tris == n
+    assert scene.n_tris > n and scene.n_tris % ttrace.TRIS_PER_CLUSTER == 0
+    assert ttrace.padding_start(scene.woop_clusters) <= n
+    pad = scene.woop_clusters.view(-1, 3, ttrace.TRIS_PER_CLUSTER, 4)
+    pad = pad.transpose(1, 2).reshape(-1, 3, 4)[n:]
+    assert (pad[:, 2, :3] == 0).all()             # d'_z = 0: never a hit
+    carried = scene_from_numpy(_numpy_fields(jcompile(jd)), device="cpu")
+    assert 0 < carried.n_real_tris <= n
+    assert ttrace.real_tris(carried) == carried.n_real_tris
+
+
+def test_padding_check_rejects_broken_table():
+    """A table whose padding could hit, a count past the table and a
+    missing count are refused before any launch."""
+    scene = tcompile(tpresets.cornell_box(), device="cpu")
+    woop = scene.woop_clusters.clone()
+    woop[1, 2 * ttrace.TRIS_PER_CLUSTER + 5, 0] = 1.0   # triangle 69
+    with pytest.raises(ValueError, match="triangle 69 .* can hit"):
+        ttrace.real_tris(scene._replace(woop_clusters=woop))
+    with pytest.raises(ValueError, match="outside the table"):
+        ttrace.real_tris(scene._replace(n_real_tris=10_000))
+    with pytest.raises(ValueError, match="no real triangle count"):
+        ttrace.real_tris(scene._replace(n_real_tris=None))
 
 
 def test_compile_scene_rejects_unported():
