@@ -9,7 +9,7 @@ Phases, each of which must pass or the script exits non-zero:
      16's builds in a child process at the lowest CPU priority, so they
      compile while phases 2-15 run: trace.cu and megakernel.cu under each
      walk variant of WALK_VARIANTS (build defines of
-     csrc/trace_common.cuh) and shade.cu under "old"; print ptxas's
+     csrc/trace_common.cuh) and shade.cu under "simt"; print ptxas's
      register and spill reports of the default builds (and, in phase 16,
      of the SIMT walk's), and fail on a spill in any build;
   2. hold the trace kernel against its plain PyTorch version on the Cornell
@@ -30,7 +30,8 @@ Phases, each of which must pass or the script exits non-zero:
      held against run_path on the same rays;
   7. render() with MegaPathTracer (mega_path, counted) at 256², 8 spp
      against phase 5's plain render, and mega_path against path_plain lane
-     by lane;
+     by lane; then its cost by bounce: the launch with n_bounces = 1 ... 8,
+     each timed beside the paths and warps live at that bounce;
   8. render_persistent (mega_persistent) at 256², 64 spp against phase 4's
      eager image and counts, and against persistent_plain lane by lane at
      16 spp; then the bench.py scale: 256², 2048 spp, one warm-up pass and
@@ -40,8 +41,10 @@ Phases, each of which must pass or the script exits non-zero:
      shade_plain, lane by lane on the four-material scene (diffuse
      ground, GGX rough-conductor and dielectric spheres, conductor cube,
      area light) at 65,536 lanes, at bounce 0 and bounce 3, with the
-     share of lanes that trace a shadow ray, its time and bound; then
-     the same comparison with every material two-sided;
+     share of lanes that trace a shadow ray, its time and bound, and the
+     trace kernel's any-hit time on exactly its shadow rays (the
+     yardstick: the difference is the shading); then the same comparison
+     with every material two-sided;
  10. that scene's path through render() with PathTracer(max_depth=6,
      fused_shade="on") at 256², 64 spp (counted) against fused_shade=
      "off" under the image rule, with both rays/s and a 1-spp profile of
@@ -56,30 +59,31 @@ Phases, each of which must pass or the script exits non-zero:
      its plain version lane by lane at bounce 0 and from the state after
      3 plain bounces, then one pass bounce by bounce (counted);
  12. render() with MegaPathTracer (mega_path, counted) at 8 spp against
-     the eager render, and mega_path against path_plain lane by lane;
+     the eager render, mega_path against path_plain lane by lane, and its
+     cost by bounce as in phase 7;
  13. render_persistent at 8 spp against the eager image, then one 256-spp
      launch of mega_persistent (counted) timed by CUDA events beside its
      bound, and the kernel against persistent_plain on every 16th pixel
      at 16 spp;
  14. the shade kernel against shade_plain at bounces 0 and 3 with rough
      plastic swapped for plastic and every material two-sided, then
-     one-sided (timed), with the share of lanes tracing a shadow ray;
+     one-sided (timed, with phase 9's yardstick), with the share of lanes
+     tracing a shadow ray;
  15. that one-sided scene's eager path with fused_shade "off" and "on"
      at 16 spp (counted), both rays/s and a 1-spp profile of each, the
      images under the image rule, and render_persistent against them;
- 16. the cluster walk's builds against each other: the walk before the
-     warp-cooperative redesign ("old") and the default ("new") in turns
-     old, new, new, old, then each other variant once (the SIMT walk with
-     the padding stop, the cooperative threshold T at 4, 8, 12, 16, 20
-     and 33), on the Cornell 2048-spp mega_persistent launch (with
-     bench-scale rays/s for old and new), the leaf-families 256-spp
-     launch, and the trace kernel on Cornell's and the leaf scene's
-     bounce-0 rays and the leaf scene's bounce-3 wavefront; for old and
-     new also the shade kernel at phases 9 and 14's timed shapes; every
-     build bit-equal to the plain version on every lane
-     (the persistent launches: equal to the default build's, which phases
-     8 and 13 hold to persistent_plain, and on those phases' plain
-     comparisons equal to persistent_plain itself).
+ 16. the cluster walk's builds against the default ("new"), in turns
+     X, new, new, X for the walk before the warp-cooperative redesign
+     ("old") and the SIMT walk ("simt"), then the cooperative threshold T
+     at 4, 8, 12, 16, 20 and 33 once each, on the Cornell 2048-spp
+     mega_persistent launch (with bench-scale rays/s for old and new),
+     the leaf-families 256-spp launch, and the trace kernel on Cornell's
+     and the leaf scene's bounce-0 rays and the leaf scene's bounce-3
+     wavefront; for simt and new also the shade kernel at phases 9 and
+     14's timed shapes; every build bit-equal to the plain version on
+     every lane (the persistent launches: equal to the default build's,
+     which phases 8 and 13 hold to persistent_plain, and on those phases'
+     plain comparisons equal to persistent_plain itself).
 
 The last two lines are the card's name and power limit, as nvidia-smi
 reports them, and {"ok": true, "device": {...}}; the line before them lists
@@ -171,7 +175,11 @@ WALK_VARIANTS = {
     "T20": ("-DMITSUBA_WALK_T=20",),
     "T33": ("-DMITSUBA_WALK_T=33",),
 }
-WALK_TURNS = ("old", "new", "new", "old", "simt", "T4", "T8", "T12",
+# each variant against "new" in turns X, new, new, X: the walk before the
+# warp-cooperative redesign ("old") and the SIMT walk ("simt", the shade
+# kernel's walk before it took the warp walk); then the threshold sweep
+# once each
+WALK_TURNS = ("old", "simt", "new", "new", "simt", "old", "T4", "T8", "T12",
               "T16", "T20", "T33")
 WALK_DEFAULT_T = 24         # MITSUBA_WALK_T's default in trace_common.cuh
 # families whose eval runs without the both-above-the-surface test
@@ -207,7 +215,7 @@ def check(cond, msg):
 def build_jobs(variants):
     """Phase 1's nvcc builds: the three libraries, or (variants) the
     walk variants phase 16 compares: trace.cu and megakernel.cu under
-    each of WALK_VARIANTS, shade.cu under "old"."""
+    each of WALK_VARIANTS, shade.cu under "simt"."""
     from mitsuba_tpu_torch.accel import megakernel as mk
     from mitsuba_tpu_torch.accel import shade_kernel as sk
     from mitsuba_tpu_torch.accel import trace
@@ -215,7 +223,7 @@ def build_jobs(variants):
         return [(trace.build, ()), (mk.build, ()), (sk.build, ())]
     return ([(fn, defines) for defines in WALK_VARIANTS.values() if defines
              for fn in (trace.build, mk.build)]
-            + [(sk.build, WALK_VARIANTS["old"])])
+            + [(sk.build, WALK_VARIANTS["simt"])])
 
 
 def run_builds(jobs, shown=()):
@@ -684,6 +692,41 @@ def events_ms(fn):
     return start.elapsed_time(end), out
 
 
+def path_increments(label, tables, rr, depth, st0, pix, samp, card):
+    """mega_path's cost by bounce: the launch from st0 with n_bounces = k
+    for k = 1 ... depth, each timed, beside the paths live at bounce k
+    (read from the kernel's own state after k - 1 bounces) and the warps
+    of 32 lanes that hold one, which run that bounce (lanes: a multiple
+    of 32). Returns a dict for each bounce."""
+    from mitsuba_tpu_torch.accel import megakernel as mk
+    rows, st, prev = [], st0, 0.0
+    for k in range(1, depth + 1):
+        live = st[12] > 0.5
+        warps = int(live.view(-1, 32).any(1).sum())
+        run = functools.partial(mk.run_path, tables, rr, depth, k, st0, pix,
+                                samp, 0)
+        ms = time_ms(run, 20)
+        rows.append({"bounce": k, "live_paths": int(live.sum()),
+                     "live_warps": warps, "ms": ms,
+                     "increment_ms": ms - prev})
+        print(f"[bounces] {label}, bounce {k}: {int(live.sum())} live paths "
+              f"in {warps} warps, n_bounces={k} {ms:.5f} ms, increment "
+              f"{ms - prev:.5f} ms ({card})", flush=True)
+        prev = ms
+        st = run()[:16]
+    return rows
+
+
+def shade_yardstick(scene, packed, bounce, depth):
+    """The trace kernel's any-hit time on exactly the shade kernel's
+    shadow rays at this bounce: all N lanes, the same live mask."""
+    from mitsuba_tpu_torch.accel import shade_kernel as sk
+    from mitsuba_tpu_torch.accel import trace
+    so, sd, smint, smaxt, live = sk.shadow_rays(packed, bounce, depth)
+    return time_ms(lambda: trace.occluded(scene, so, sd, smint, smaxt, live),
+                   100)
+
+
 def four_materials_desc(desc_cls, tf, shapes, sphere=(16, 32),
                         two_sided=False, ggx=None):
     """The scene of tests/test_pallas_tpu.py:160-183 through a builder
@@ -902,13 +945,17 @@ def shade_phases(card):
                     check(bool(flips.any()), f"{label}: no lane flipped")
                 else:
                     timing[b] = {"ms": time_ms(run, 100),
+                                 "any_hit_ms": shade_yardstick(
+                                     sc, packed, b, SHADE_DEPTH),
                                  "plain_ms": time_ms(plain, 5, warmup=1),
                                  **shade_bound(label, sc, packed, b,
                                                tracer.rr_depth, fam_ops,
                                                card)}
                     print(f"[shade] {label}: kernel "
-                          f"{timing[b]['ms'] * 1e3:.2f} us/launch, plain "
-                          f"{timing[b]['plain_ms']:.3f} ms ({card})",
+                          f"{timing[b]['ms'] * 1e3:.2f} us/launch, the "
+                          f"trace kernel's any-hit launch on its shadow "
+                          f"rays {timing[b]['any_hit_ms'] * 1e3:.2f} us, "
+                          f"plain {timing[b]['plain_ms']:.3f} ms ({card})",
                           flush=True)
                     walk_cases[f"four-material b{b}"] = (functools.partial(
                         sk.run_shade, sc, packed, pix, samp, 0, b,
@@ -1118,7 +1165,9 @@ def leaf_phases(card, kernels):
             tables, rr, depth, depth, st0, pix, samp, 0), 1, warmup=1),
         **mega_bound("leaf mega_path, one sample", work_pass,
                      int(k[16].sum()), int(k[17].sum()), 0, pix.shape[0],
-                     16, 18, tables, card)}
+                     16, 18, tables, card),
+        "by_bounce": path_increments("leaf mega_path", tables, rr, depth,
+                                     st0, pix, samp, card)}
 
     # ---- 13. mega_persistent ------------------------------------------------
     img_r, n_r = render_persistent(integ, cam, LEAF_SPP, seed=0)
@@ -1205,12 +1254,16 @@ def leaf_phases(card, kernels):
                     n_flips += int(flips.sum())
                 else:
                     timing[b] = {"ms": time_ms(run, 50),
+                                 "any_hit_ms": shade_yardstick(sc, packed, b,
+                                                               depth),
                                  "plain_ms": time_ms(plain, 2, warmup=1),
                                  **shade_bound(label, sc, packed, b, rr,
                                                fam_ops, card)}
                     print(f"[leaf shade] {label}: kernel "
-                          f"{timing[b]['ms'] * 1e3:.2f} us/launch, plain "
-                          f"{timing[b]['plain_ms']:.3f} ms ({card})",
+                          f"{timing[b]['ms'] * 1e3:.2f} us/launch, the "
+                          f"trace kernel's any-hit launch on its shadow "
+                          f"rays {timing[b]['any_hit_ms'] * 1e3:.2f} us, "
+                          f"plain {timing[b]['plain_ms']:.3f} ms ({card})",
                           flush=True)
                     walk["shade"][f"leaf b{b}"] = (functools.partial(
                         sk.run_shade, sc, packed, pix, samp, 0, b, rr,
@@ -1272,9 +1325,10 @@ def walk_phase(card, cases):
     but for the entries ending "(plain)": those have persistent_plain's
     output, come first in each turn, load the build's kernels, and are
     not timed;
-    cases["bench"]: the bench-scale rays/s, and cases["shade"]: name ->
-    (run, shade_plain's output), each held equal bit for bit and timed,
-    for "old" and "new" (the other variants leave shade.cu as it is).
+    cases["bench"]: the bench-scale rays/s, for "old" and "new", and
+    cases["shade"]: name -> (run, shade_plain's output), each held equal
+    bit for bit and timed, for "simt" and "new" (the other variants leave
+    shade.cu as it is).
     Prints the times by turn and their means by variant, and
     {"walk": ...}."""
     from mitsuba_tpu_torch.accel import dense, trace
@@ -1304,6 +1358,7 @@ def walk_phase(card, cases):
                     row[f"persistent {name}"] = ms
             if variant in ("old", "new"):
                 row["cornell bench rays/s"] = cases["bench"]()
+            if variant in ("simt", "new"):
                 for name, (run, ref) in cases["shade"].items():
                     check(torch.equal(run(), ref),
                           f"walk {variant}: shade {name} differs from plain")
@@ -1317,11 +1372,10 @@ def walk_phase(card, cases):
         rows = [t for t in turns if t["variant"] == variant]
         means[variant] = {k: sum(r[k] for r in rows) / len(rows)
                           for k in rows[0] if k != "variant"}
-    for name in turns[0]:
-        if name != "variant":
-            print(f"[walk] mean {name}: " + ", ".join(
-                f"{v} {m[name]:.6g}" for v, m in means.items()
-                if name in m), flush=True)
+    for name in means["new"]:     # the default build runs every case
+        print(f"[walk] mean {name}: " + ", ".join(
+            f"{v} {m[name]:.6g}" for v, m in means.items() if name in m),
+            flush=True)
     print(json.dumps({"walk": {"default_T": WALK_DEFAULT_T, "card": card,
                                "variants": {k: list(v) for k, v in
                                             WALK_VARIANTS.items()},
@@ -1528,7 +1582,9 @@ def main():
         **mega_bound("mega_path, one sample", work_pass, int(k[16].sum()),
                      int(k[17].sum()), 0, pix.shape[0], 16, 18, tables,
                      card),
-        "library_ms": None})
+        "library_ms": None,
+        "by_bounce": path_increments("Cornell mega_path", tables, rr,
+                                     MAX_DEPTH, st0, pix, samp, card)})
 
     # ---- 8. mega_persistent: render_persistent -----------------------------
     img_r, n_r = render_persistent(integ, cam, PERSIST_SPP, seed=0)

@@ -36,15 +36,20 @@
 // triangle test plus ~300 ops of shading, against a few hundred bytes of
 // table that every lane of a warp reads from L1; lanes at different
 // bounces trace rays that diverge, which the warp walk's cooperative
-// branch answers (trace_common.cuh); paths of a warp die at
-// different bounces, so lanes idle while the warp's longest path runs,
-// and lanes of one warp that hit different materials run their families'
-// branches one after another. The persistent kernel answers
-// the divergence the way the TPU kernel does: a lane whose path dies
-// starts its next sample at once, so a warp stays busy until its lanes
-// have all finished their spp. One lane per pixel gives 65,536 lanes at
-// 256² (~15 warps per SM); splitting a pixel's samples over several lanes
-// is later work.
+// branch answers (trace_common.cuh); lanes of one warp that hit different
+// materials run their families' branches one after another; and paths
+// die at different bounces, so in mega_path lanes idle while the warp's
+// longest path runs. The persistent kernel answers the last the way the
+// TPU kernel does: a lane whose path dies starts its next sample at once,
+// so a warp stays busy until its lanes have all finished their spp.
+// mega_path keeps its idle lanes: packing each block's live paths into
+// its first warps before every bounce was measured (PERF.md §6) and lost
+// on scenes of many clusters (leaf-families 0.86 -> 1.07 ms a launch on
+// an H100 80GB HBM3 at 700 W), where the cooperative walk's work grows
+// with the rays a warp holds and fewer, fuller warps hide less latency;
+// it gained 8% on the Cornell box. One lane per pixel gives 65,536 lanes at 256²
+// (~15 warps per SM); splitting a pixel's samples over several lanes is
+// later work.
 //
 // Arithmetic: this file is compiled with -fmad=false and writes every
 // float expression in the plain version's order, so each operation rounds

@@ -6,7 +6,8 @@
 //  - trace_ray, one ray per thread by itself (SIMT): clusters in index
 //    order, each slab-tested against the ray with the far bound
 //    min(maxt, t_best), an entered cluster's triangles in index order.
-//    shade.cu uses it, because it traces inside a divergent branch.
+//    trace_ray_warp runs it for each wanting lane where the walk is not
+//    cooperative (coop_walk).
 //  - trace_ray_warp, called by all 32 lanes of a warp at once, each with
 //    its own ray and a `want` flag. On a table of more than one walked
 //    cluster (coop_walk; else each lane runs trace_ray) the warp loops

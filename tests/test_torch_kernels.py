@@ -389,3 +389,80 @@ def test_walk_persistent_shuffled_on_card(walk):
         k = tmk.run_persistent(tables, 5, 6, 2, cam, pst, pix, samp, 1)
     p = tmk.persistent_plain(tables, 5, 6, 2, cam, pst, pix, samp, 1)
     assert torch.equal(k, p)
+
+
+# ---------------------------------------------------------------------------
+# the shade kernel's shadow walk and mega_path, under both walk builds, on
+# ragged, shuffled lanes with dead ones among them
+# ---------------------------------------------------------------------------
+
+
+def _shuffled(dev, scene_name, n, seed):
+    """A scene, n shuffled pixels of its 257² film (66,049 pixels), their
+    sample ids and their camera paths. Scenes: "cornell"; "leaf", the
+    leaf-families scene at sphere(8, 16); "leaf_shade", the same with
+    rough plastic swapped for plastic and every material two-sided (the
+    shade kernel's families); "four_material"."""
+    if scene_name == "cornell":
+        scene = tcompile(tpresets.cornell_box(), device=dev)
+        cam = tpresets.cornell_camera(257, 257)
+    elif scene_name == "four_material":
+        scene, cam = four_materials(257, dev)
+    else:
+        shade = scene_name == "leaf_shade"
+        scene, cam, *_ = _leaf(dev, res=257, rough_plastic=not shade,
+                               two_sided=shade)
+    pix = torch.as_tensor(np.random.RandomState(seed).permutation(
+        257 * 257)[:n].astype(np.int32), device=dev)
+    st = initial_state(*tmk.primary_rays(cam, 0, pix, 0))
+    return scene, pix, torch.zeros_like(pix), st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", list(WALKS))
+@pytest.mark.parametrize("scene_name", ["leaf_shade", "four_material"])
+@pytest.mark.parametrize("bounce", [0, 3])
+@pytest.mark.parametrize("n", [33, 100, 65537])
+def test_shade_walks_match_plain_on_card(n, bounce, scene_name, walk):
+    """The shade kernel's shadow walk (cooperative on these multi-cluster
+    scenes, and the SIMT instantiation) against shade_plain bit for bit:
+    ragged n (the last warp partly empty), shuffled lanes, and lanes
+    inactive on entry in every warp beside the ones whose paths died."""
+    dev = _card()
+    scene, pix, samp, st = _shuffled(dev, scene_name, n, n + bounce)
+    tracer = PathTracer(max_depth=6).specialized_for(scene)
+    for b in range(bounce):
+        st = tracer.bounce(scene, st, 0, pix, samp, b)[0]
+    packed = tracer.shade_inputs(scene, st, 0, pix, samp, bounce)
+    off = torch.arange(n, device=dev) % 7 == 3
+    for row in (tshade.I_ACT, tshade.I_HIT):
+        packed[row] = torch.where(off, 0.0, packed[row])
+    tshade.reset_launches()
+    with walk_build(*WALKS[walk]):
+        k = tshade.run_shade(scene, packed, pix, samp, 0, bounce, 5, 6)
+    assert torch.equal(k, tshade.shade_plain(scene, packed, pix, samp, 0,
+                                             bounce, 5, 6))
+    assert tshade.LAUNCHES["shade"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", list(WALKS))
+@pytest.mark.parametrize("scene_name", ["cornell", "leaf"])
+@pytest.mark.parametrize("n,n_bounces", [(33, 6), (100, 2), (65537, 6)])
+def test_mega_path_walks_match_plain_on_card(n, n_bounces, scene_name,
+                                             walk):
+    """mega_path against path_plain bit for bit, count rows included:
+    ragged n (the last warp partly empty), lanes dead on entry, pixels in
+    shuffled order, and launches that stop before the paths do; on the
+    leaf scene under both walks (Cornell, one walked cluster, takes the
+    SIMT walk under either build)."""
+    dev = _card()
+    scene, pix, samp, st = _shuffled(dev, scene_name, n, n)
+    st[12] = torch.where(torch.arange(n, device=dev) % 5 == 2, 0.0, st[12])
+    tables = MegaPathTracer.for_scene(scene, max_depth=6).tables
+    tmk.reset_launches()
+    with walk_build(*WALKS[walk]):
+        k = tmk.run_path(tables, 5, 6, n_bounces, st, pix, samp, 1)
+    assert torch.equal(k, tmk.path_plain(tables, 5, 6, n_bounces, st, pix,
+                                         samp, 1))
+    assert tmk.LAUNCHES["mega_path"] == 1
