@@ -83,14 +83,39 @@ Phases, each of which must pass or the script exits non-zero:
      14's timed shapes; every build bit-equal to the plain version on
      every lane (the persistent launches: equal to the default build's,
      which phases 8 and 13 hold to persistent_plain, and on those phases'
-     plain comparisons equal to persistent_plain itself).
+     plain comparisons equal to persistent_plain itself);
+ 17. the lights-and-composites scene (lights_composites_desc: area,
+     point, spot and directional lights under a constant sky; GGX,
+     mixture, blend, mask, coating and rough-coating materials; 256², 8
+     bounces): the trace kernel against its plain version on its camera
+     rays and bounce-0 shadow rays (to the sun and sky at maxt ~1e30),
+     mega_bounce lane by lane at bounce 0 and from the state after 3
+     plain bounces and one pass bounce by bounce (counted), mega_path
+     against path_plain lane by lane and render() with MegaPathTracer at
+     8 spp against the eager render (counted), render_persistent at 64
+     spp against the eager image (its trace launches counted),
+     mega_persistent against persistent_plain on every 16th pixel at 16
+     spp, and one 256-spp launch timed beside its bound; these
+     megakernel launches take the kExt instantiations;
+ 18. the thin lens (Cornell, aperture 0.05, focus 2): mega_persistent
+     against persistent_plain lane by lane at 16 spp, render_persistent
+     at 64 spp against the eager render with the same camera, and a
+     blur check against the pinhole;
+ 19. the shade kernel on the four-material scene with the point, spot,
+     directional and constant lights added: against shade_plain lane by
+     lane at bounces 0 and 3 (timed, with the shares of lanes whose NEE
+     sample is delta or the sky), then the eager path at 64 spp, fused
+     "on" against "off". Phases 17-19 require bit-equality on every
+     lane.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 reports them, and {"ok": true, "device": {...}}; the line before them lists
 every ported kernel with its launches, error and times on the Cornell box
-(the shade kernel: the four-material scene), and under "leaf_families"
-the same on the leaf-families scene; the line before that, {"walk": ...},
-phase 16's times by variant. Exits non-zero
+(the shade kernel: the four-material scene), under "leaf_families" the
+same on the leaf-families scene and under "lights_composites" on the
+lights-and-composites scene (the shade kernel: the four-material scene
+with its lights); phase 16 prints {"walk": ...}, its times by
+variant. Exits non-zero
 without a CUDA device, and without the package beside it.
 """
 import atexit
@@ -145,6 +170,25 @@ SHADE_OPS = {"ray mint": 7, "hit record (normal, point)": 39,
              "BSDF sample, next ray": 62, "Russian roulette": 11}
 TWO_SIDED_OPS = 3           # the flip's three multiplies
 CAMERA_OPS = 41             # camera_path: jitter, pinhole ray, normalize
+# the emitter sample of the kExt instantiations by emitter type, counted
+# from csrc/megakernel.cu sample_direct as SHADE_OPS is (the pick's
+# sample reuse included; type 0, the area emitter, is SHADE_OPS's), and
+# the constant environment's term on an escaped ray (eval_env, MIS)
+LIGHT_OPS = {0: SHADE_OPS["emitter sample"], 1: 25, 2: 23, 4: 12, 5: 42}
+ENV_OPS = 17
+# the composites' own fp32 operations around their children's eval and
+# sample, counted from csrc/bsdf_common.cuh mat_eval / mat_sample for one
+# lane (fresnel_diel_f 25 each): the mixture's convex sum 13, its pick
+# and stream remap 5, a delta child's pdf 2, a smooth sample's f/pdf 6;
+# the coat's setup (η, 1/η, F(wi), wi bent in) 36, its eval around the
+# child 84 (wo bent in, F(wo), path, Jacobian, absorption, pdf), the rough
+# coat's GGX lobe 110, the coat's sample remap 6, the child refracted
+# out 70, the rough coat's VNDF reflection 59 and its f/pdf weight 9
+COMPOSITE_OPS = {"mix eval": 13, "mix pick": 5, "mix delta": 2,
+                 "mix smooth": 6, "coat setup": 36, "coat eval": 84,
+                 "rc lobe eval": 110, "coat remap": 6, "coat out": 70,
+                 "rc lobe sample": 59, "rc weight": 9}
+COMPOSITE_CODES = (13, 14, 17)
 # the fused shade phases: the four-material scene of
 # tests/test_pallas_tpu.py:160-183 at 256², 6 bounces, 64 spp
 SHADE_DEPTH = 6
@@ -162,6 +206,14 @@ LEAF_PLAIN_LANES = 16       # persistent_plain on every 16th pixel ...
 LEAF_PLAIN_SPP = 16         # ... at 16 spp
 LEAF_BOUNCES = (0, 3)
 LEAF_EAGER_SPP = 16         # phase 15
+# the lights-and-composites phases (17-19): 256², 8 bounces
+LIGHTS_SPP = 8              # render() with MegaPathTracer against eager
+LIGHTS_PERSIST_SPP = 64     # render_persistent against the eager image
+LIGHTS_TIMED_SPP = 256      # one mega_persistent launch, timed
+LIGHTS_PLAIN_LANES = 16     # persistent_plain on every 16th pixel ...
+LIGHTS_PLAIN_SPP = 16       # ... at 16 spp
+LIGHTS_BOUNCES = (0, 3)
+LENS = {"aperture_radius": 0.05, "focus_distance": 2.0}  # recipe :394-425
 # phase 16: builds of the cluster walk (csrc/trace_common.cuh defines);
 # "new" is the default build
 WALK_VARIANTS = {
@@ -510,6 +562,15 @@ def image_rule(img, ref, label):
     check(mean_rel < 5e-3, f"{label}: means differ by rel {mean_rel}")
 
 
+def compare_exact(label, k, p):
+    """compare_rows, then every lane bit for bit (NaN where both are)."""
+    err = compare_rows(label, k, p)
+    same = (k == p) | (k.isnan() & p.isnan())
+    check(bool(same.all()), f"{label}: {int((~same.all(0)).sum())} lanes "
+                            "differ from the plain version")
+    return err
+
+
 def compare_rows(label, k, p):
     """A megakernel's output rows against its plain version's, lane by
     lane. A lane agrees when every row is within rel 1e-5, or abs 1e-6
@@ -560,7 +621,7 @@ def family_ops(tables):
     out = {}
     for row in tables.mat.cpu():
         fam = int(row[12])
-        if fam in out:
+        if fam in out or fam in COMPOSITE_CODES:
             continue
         m = row[:, None].clone()
         t = lambda *v: torch.tensor(v, dtype=torch.float32)
@@ -574,6 +635,37 @@ def family_ops(tables):
             mk.bsdf_sample(m, *args[:3], t(0.3), t(0.7), t(0.4),
                            families=(fam,))
             out[fam] = (n_eval, Count.n)
+    return out
+
+
+def composite_ops(tables, fam_ops):
+    """fp32 operations of each composite material row's eval and sample
+    for one lane, from COMPOSITE_OPS and its children's family_ops:
+    {row: (eval ops beside the children's, the children's eval ops,
+    sample ops)}. Where the work depends on the lane's lobe pick, the
+    cheaper branch is charged, so the bound stays a least time."""
+    c = COMPOSITE_OPS
+    out = {}
+    mat = tables.mat.cpu()
+    for i, row in enumerate(mat):
+        code = int(row[12])
+        if code not in COMPOSITE_CODES:
+            continue
+        kids = [int(mat[int(row[k]), 12]) for k in (18, 19)]
+        ea, sa = fam_ops[kids[0]]
+        if code == 13:
+            eb, sb = fam_ops[kids[1]]
+            out[i] = (c["mix eval"], ea + eb,
+                      c["mix pick"] + min(sa, sb) + c["mix delta"])
+            continue
+        ev = c["coat setup"] + c["coat eval"] + (c["rc lobe eval"]
+                                                 if code == 17 else 0)
+        nested = sa + c["coat out"]
+        if code == 17:
+            smooth = ev + ea + c["rc weight"]
+            nested = min(nested, c["rc lobe sample"]) + smooth
+        out[i] = (ev, ea, c["coat setup"] + c["coat remap"]
+                  + (nested if code == 17 else 0))
     return out
 
 
@@ -604,12 +696,14 @@ def bounce_work(tables, state, pix, samp, bounce, fam_ops, max_depth,
                        rng.sample_2d(seed, pix, bounce_dim(bounce,
                                                            DIM_NEE_POS), samp))
     attempted = its.valid & (bounce + 3 <= max_depth + 1) & (ds.pdf > 0)
-    mat = tables.mat[its.mat_id.clamp(min=0)].T
+    mat, mat_a, mat_b = mk.child_rows(tables, its.mat_id)
     frame = Frame.from_normal(its.ns)
     wi, wo = Frame.to_local(frame, -d), Frame.to_local(frame, ds.d)
     fsign = torch.where((mat[15] > 0.5) & (wi[:, 2] < 0), -1.0, 1.0)
-    *f, _ = mk.bsdf_eval_pdf(mat, wi[:, 0], wi[:, 1], wi[:, 2] * fsign,
-                             wo[:, 0], wo[:, 1], wo[:, 2] * fsign)
+    *f, _ = mk.composite_eval_pdf(mat, mat_a, mat_b, wi[:, 0], wi[:, 1],
+                                  wi[:, 2] * fsign, wo[:, 0], wo[:, 1],
+                                  wo[:, 2] * fsign,
+                                  set(tables.mat[:, 12].long().tolist()))
     traced = attempted & ((f[0] > 0) | (f[1] > 0) | (f[2] > 0))
     both_up = (wi[:, 2] * fsign > 0) & (wo[:, 2] * fsign > 0)
     common = (sum(SHADE_OPS.values()) - SHADE_OPS["diffuse f"]
@@ -620,6 +714,19 @@ def bounce_work(tables, state, pix, samp, bounce, fam_ops, max_depth,
         hit_f = its.valid & (mat[12] == fam)
         runs = attempted & hit_f & (both_up | (fam in TRANSMISSIVE))
         shade_ops += n_sample * int(hit_f.sum()) + n_eval * int(runs.sum())
+    for row, (n_own, n_kids, n_sample) in composite_ops(tables,
+                                                        fam_ops).items():
+        hit_r = its.valid & (its.mat_id == row)
+        shade_ops += (n_sample * int(hit_r.sum())
+                      + n_own * int((attempted & hit_r).sum())
+                      + n_kids * int((attempted & hit_r & both_up).sum()))
+    if tables.ext:   # the emitter sample by type, the sky on escape
+        em = scene.em_type[ds.em_id.clamp(min=0)]
+        for t, n in LIGHT_OPS.items():
+            shade_ops += (n - LIGHT_OPS[0]) * int((its.valid & (em == t))
+                                                  .sum())
+        if tables.env >= 0:
+            shade_ops += ENV_OPS * int((live & ~its.valid).sum())
     so = offset_ray_origin(its.p, its.ng, ds.d)
     c_tests, c_ops, c_bytes = needed_work(scene, o, d, ray_mint(o), maxt,
                                           live, False)
@@ -826,6 +933,77 @@ def leaf_families_desc(desc_cls, tf, shapes, sphere=(12, 24),
     return d
 
 
+def lights_composites_desc(builder, tf, shapes, sphere=(12, 24)):
+    """The lights-and-composites scene through a builder module (the
+    port's or the JAX package's scene.builder; tf and shapes as for
+    four_materials_desc), the union of the recipes of
+    tests/test_mega_tpu.py:104-142, :305-334 and :639-751: a diffuse
+    floor under a rectangle light at y = 4, a small warm area light, a
+    point, a spot and a directional light and the constant sky (0.08,
+    0.09, 0.12); spheres (scale 0.6) of GGX, a diffuse+GGX mixture, a
+    glass+diffuse mixture, coating over diffuse, coating over GGX, rough
+    coating over diffuse and a blend of plastic and rough diffuse; and a
+    mask pane."""
+    d = builder.SceneDesc()
+    m = d.add_material
+    dif = m(kind="diffuse", albedo=(0.7, 0.3, 0.2))
+    ggx = m(kind="roughconductor", alpha=0.2)
+    glass = m(kind="dielectric", int_ior=1.5)
+    dif2 = m(kind="diffuse", albedo=(0.6, 0.25, 0.2))
+    ggx2 = m(kind="roughconductor", alpha=0.25)
+    dif3 = m(kind="diffuse", albedo=(0.55, 0.2, 0.15))
+    plastic = m(kind="plastic", diffuse_reflectance=(0.2, 0.3, 0.6))
+    rdif = m(kind="roughdiffuse", albedo=(0.6, 0.5, 0.4), alpha=0.4)
+    spheres = [
+        ggx,
+        m(kind="mixturebsdf", child_a=dif, child_b=ggx, weight=0.6),
+        m(kind="mixturebsdf", child_a=glass, child_b=dif, weight=0.5),
+        m(kind="coating", child_a=dif2, int_ior=1.5,
+          sigma_a=(0.1, 0.15, 0.2), thickness=1.0),
+        m(kind="coating", child_a=ggx2, int_ior=1.49),
+        m(kind="roughcoating", child_a=dif3, int_ior=1.5, alpha=0.1,
+          sigma_a=(0.05, 0.08, 0.1), distribution="ggx"),
+        m(kind="blendbsdf", child_a=plastic, child_b=rdif, weight=0.3),
+    ]
+    mask = m(kind="mask", child_a=dif, weight=0.4)
+    floor = m(kind="diffuse", albedo=(0.5, 0.5, 0.55))
+    d.add_shape(shapes.rectangle(), material=floor,
+                to_world=tf.translate([0, -1, 0])
+                @ tf.rotate([1, 0, 0], -90) @ tf.scale([6] * 3))
+    for i, mat in enumerate(spheres):
+        row, col = divmod(i, 4)
+        x = 1.4 * col - (2.1 if row == 0 else 1.4)
+        d.add_shape(shapes.sphere(*sphere), material=mat,
+                    to_world=tf.translate([x, -0.4, -1.8 * row])
+                    @ tf.scale([0.6] * 3))
+    d.add_shape(shapes.rectangle(), material=mask,
+                to_world=tf.translate([2.8, 0.0, -1.8])
+                @ tf.scale([0.6] * 3))
+    d.add_shape(shapes.rectangle(), material=floor,
+                radiance=(13.0, 12.0, 11.0),
+                to_world=tf.translate([0, 4, 0])
+                @ tf.rotate([1, 0, 0], 90) @ tf.scale([2.0] * 3))
+    d.add_shape(shapes.rectangle(), material=floor, radiance=(6.0, 2.0, 1.0),
+                to_world=tf.translate([0, 1.2, -3.6]) @ tf.scale([0.3] * 3))
+    return add_lights(d, builder)
+
+
+def add_lights(d, builder):
+    """The point, spot and directional lights of
+    tests/test_mega_tpu.py:305-334 and the constant sky (0.08, 0.09, 0.12)
+    of :104-142, added to the description d (builder: the package's
+    scene.builder module); returns d."""
+    d.point_lights.append(builder.PointLight(position=[2.0, 3.0, 1.0],
+                                             intensity=[30.0, 28.0, 25.0]))
+    d.spot_lights.append(builder.SpotLight(
+        position=[-2.0, 3.0, 1.0], direction=[0.5, -1.0, -0.2],
+        intensity=[40.0, 40.0, 40.0], cutoff_angle=30.0, beam_width=20.0))
+    d.directional_lights.append(builder.DirectionalLight(
+        direction=[-0.3, -1.0, -0.4], irradiance=[0.8, 0.8, 0.9]))
+    d.constant_light = builder.ConstantLight(radiance=(0.08, 0.09, 0.12))
+    return d
+
+
 def leaf_families_camera(cam_cls, tf, res):
     """A res² camera at (0, 1.5, 6.5) looking down at (0, -0.4, -1), 45°
     fov."""
@@ -833,15 +1011,18 @@ def leaf_families_camera(cam_cls, tf, res):
         origin=[0, 1.5, 6.5], target=[0, -0.4, -1], up=[0, 1, 0]))
 
 
-def four_materials(res, device=DEV, two_sided=False):
+def four_materials(res, device=DEV, two_sided=False, lights=False):
     """The four-material scene (sphere(16, 32)) compiled on `device`, and
     a res² camera at (0, 1, 6) looking along (0, -0.1, -1) with a 39°
-    fov."""
+    fov. lights adds the point, spot, directional and constant lights
+    (add_lights)."""
     from mitsuba_tpu_torch.core import transform as tf
-    from mitsuba_tpu_torch.scene import shapes
+    from mitsuba_tpu_torch.scene import builder, shapes
     from mitsuba_tpu_torch.scene.builder import SceneDesc, compile_scene
     from mitsuba_tpu_torch.sensor.sensor import PerspectiveCamera
     desc = four_materials_desc(SceneDesc, tf, shapes, two_sided=two_sided)
+    if lights:
+        add_lights(desc, builder)
     cam = PerspectiveCamera(res, res, 39.0, tf.look_at(
         origin=[0, 1, 6], target=[0, 0.9, 5], up=[0, 1, 0]))
     return compile_scene(desc, device=device), cam
@@ -1015,6 +1196,17 @@ def shade_phases(card):
             "replaces": "mitsuba_tpu/accel/shade_kernel.py:75",
             "launches": l_on["shade"], "max_abs_err": err,
             **b0, "library_ms": None}, walk_cases
+
+
+def lights_scene(res, device=DEV, sphere=(12, 24)):
+    """The lights-and-composites scene compiled on `device`, and the
+    leaf-families scene's res² camera."""
+    from mitsuba_tpu_torch.core import transform as tf
+    from mitsuba_tpu_torch.scene import builder, shapes
+    from mitsuba_tpu_torch.sensor.sensor import PerspectiveCamera
+    desc = lights_composites_desc(builder, tf, shapes, sphere)
+    return (builder.compile_scene(desc, device=device),
+            leaf_families_camera(PerspectiveCamera, tf, res))
 
 
 def leaf_scene(res, device=DEV, **kw):
@@ -1314,6 +1506,292 @@ def leaf_phases(card, kernels):
     for k in kernels:
         k["leaf_families"] = leaf[k["name"]]
     return walk
+
+
+def lights_phases(card, kernels):
+    """Phases 17-19: the lights-and-composites scene (256², 8 bounces),
+    the thin-lens Cornell box and the shade kernel under the new lights.
+    Adds to each entry of `kernels` (by name) a "lights_composites" object
+    with the kernel's launches on this scene's paths, its error against
+    its plain version and its times and bound here (the shade kernel's
+    on the four-material scene with the new lights)."""
+    import dataclasses
+
+    from mitsuba_tpu_torch.accel import megakernel as mk
+    from mitsuba_tpu_torch.accel import shade_kernel as sk
+    from mitsuba_tpu_torch.accel import trace
+    from mitsuba_tpu_torch.film.film import Film
+    from mitsuba_tpu_torch.integrator.common import ray_mint
+    from mitsuba_tpu_torch.integrator.mega import (MegaPathTracer,
+                                                   render_persistent)
+    from mitsuba_tpu_torch.integrator.path import PathTracer, initial_state
+    from mitsuba_tpu_torch.render import render_fn
+    from mitsuba_tpu_torch.scene.builder import compile_scene
+    from mitsuba_tpu_torch.scene.presets import cornell_box, cornell_camera
+
+    depth, res = MAX_DEPTH, CORNELL_RES
+    out = {k["name"]: {} for k in kernels}
+    scene, cam = lights_scene(res)
+    film = Film(res, res, "box")
+    em = sorted(set(scene.em_type.tolist()))
+    print(f"[lights] lights-and-composites scene: "
+          f"{int((scene.tri_area > 0).sum())} triangles, "
+          f"{scene.woop_clusters.shape[0]} clusters, families "
+          f"{sorted(set(scene.mat_type.tolist()))}, emitter types {em}",
+          flush=True)
+    ok, why = MegaPathTracer.supports(scene, cam, film)
+    check(ok, f"MegaPathTracer refuses the lights scene: {why}")
+    check(not sk.supports(scene)[0], "shade supports the composites")
+    integ = MegaPathTracer.for_scene(scene, max_depth=depth)
+    tables, rr = integ.tables, integ.rr_depth
+    check(tables.ext and tables.env >= 0, "lights scene: no kExt tables")
+    pix = torch.arange(res * res, dtype=torch.int32, device=DEV)
+    samp = torch.zeros_like(pix)
+    st0 = initial_state(*mk.primary_rays(cam, 0, pix, 0))
+    o0, d0 = st0[0:3].T.contiguous(), st0[3:6].T.contiguous()
+
+    # ---- 17. the trace kernel on camera rays and bounce-0 shadow rays ----
+    errs = {"trace_closest": 0.0, "trace_any": 0.0}
+    primary = (o0, d0, ray_mint(o0), torch.full_like(o0[:, 0], 1e30), None)
+    shadow = shadow_rays(scene, o0, d0)
+    far = shadow[3][shadow[4]] > 1e29
+    print(f"[lights] {int(shadow[4].sum())} shadow rays, "
+          f"{int(far.sum())} of them toward the sun or the sky (maxt "
+          f"~1e30)", flush=True)
+    compare("lights primary", scene, *primary, errs)
+    compare("lights shadow", scene, *shadow, errs)
+    for name, any_hit, rays in (("trace_closest", False, primary),
+                                ("trace_any", True, shadow)):
+        out[name] = {"max_abs_err": errs[name],
+                     **measure(f"{name}, lights bounce 0", any_hit, scene,
+                               rays, 3, card)}
+
+    # ---- 17. mega_bounce lane by lane, then one pass bounce by bounce ----
+    fam_ops = family_ops(tables)
+    print(f"[lights] fp32 ops by family (eval, sample): {fam_ops}; "
+          f"composite rows (own eval, children's eval, sample): "
+          f"{composite_ops(tables, fam_ops)}", flush=True)
+    works, work_pass = pass_work(tables, st0, pix, samp, depth)
+    st, err = st0, 0.0
+    for b in range(max(LIGHTS_BOUNCES) + 1):
+        if b in LIGHTS_BOUNCES:
+            k = mk.run_bounce(tables, rr, depth, st, pix, samp, 0, b)
+            p = mk.bounce_plain(tables, rr, depth, st, pix, samp, 0, b)
+            err = max(err, compare_exact(f"lights mega_bounce, bounce {b}",
+                                         k, p))
+        st = mk.bounce_plain(tables, rr, depth, st, pix, samp, 0, b)[:16]
+    mk.reset_launches()
+    st, counts = st0, torch.zeros_like(st0[:2])
+    for b in range(depth):
+        o = mk.run_bounce(tables, rr, depth, st, pix, samp, 0, b)
+        st, counts = o[:16], counts + o[16:18]
+    torch.cuda.synchronize()
+    launches = mk.LAUNCHES["mega_bounce"]
+    ref = mk.run_path(tables, rr, depth, depth, st0, pix, samp, 0)
+    check(launches == depth, f"lights mega_bounce launched {launches} times")
+    check(torch.equal(st, ref[:16]) and torch.equal(counts, ref[16:18]),
+          "lights: bounce-by-bounce pass differs from mega_path")
+    out0 = mk.run_bounce(tables, rr, depth, st0, pix, samp, 0, 0)
+    out["mega_bounce"] = {
+        "launches": launches, "max_abs_err": err,
+        "ms": time_ms(lambda: mk.run_bounce(tables, rr, depth, st0, pix,
+                                            samp, 0, 0), 50),
+        "plain_ms": time_ms(lambda: mk.bounce_plain(
+            tables, rr, depth, st0, pix, samp, 0, 0), 3, warmup=1),
+        **mega_bound("lights mega_bounce, bounce 0", works[0],
+                     int(out0[16].sum()), int(out0[17].sum()), 0,
+                     pix.shape[0], 16, 18, tables, card)}
+
+    # ---- 17. mega_path: render() against the eager render; lane by lane --
+    eager = PathTracer(max_depth=depth)
+    img_e, n_e = render_fn(scene, cam, film, eager, spp=LIGHTS_SPP, seed=0,
+                           device=DEV)
+    mk.reset_launches()
+    img_m, n_m = render_fn(scene, cam, film, integ, spp=LIGHTS_SPP, seed=0,
+                           device=DEV)
+    torch.cuda.synchronize()
+    launches = mk.LAUNCHES["mega_path"]
+    n_e, n_m = int(n_e), int(n_m)
+    print(f"[lights mega path] render() with MegaPathTracer, {LIGHTS_SPP} "
+          f"spp: {launches} mega_path launches, {n_m} rays (eager {n_e}), "
+          f"mean {img_m.mean().item():.5f} (eager "
+          f"{img_e.mean().item():.5f})", flush=True)
+    check(launches == LIGHTS_SPP, f"lights mega_path launched {launches}")
+    check(bool(torch.isfinite(img_m).all()), "lights mega_path NaN/Inf")
+    image_rule(img_m, img_e, f"lights render MegaPathTracer vs eager, "
+                             f"{LIGHTS_SPP} spp")
+    check(abs(n_m - n_e) <= 1e-4 * n_e, f"lights rays {n_m} vs {n_e}")
+    k = mk.run_path(tables, rr, depth, depth, st0, pix, samp, 0)
+    p = mk.path_plain(tables, rr, depth, depth, st0, pix, samp, 0)
+    out["mega_path"] = {
+        "launches": launches,
+        "max_abs_err": compare_exact("lights mega_path, one sample", k, p),
+        "ms": time_ms(lambda: mk.run_path(tables, rr, depth, depth, st0, pix,
+                                          samp, 0), 20),
+        "plain_ms": time_ms(lambda: mk.path_plain(
+            tables, rr, depth, depth, st0, pix, samp, 0), 1, warmup=1),
+        **mega_bound("lights mega_path, one sample", work_pass,
+                     int(k[16].sum()), int(k[17].sum()), 0, pix.shape[0],
+                     16, 18, tables, card)}
+
+    # ---- 17. mega_persistent: 64 spp against the eager image, every 16th
+    # pixel against persistent_plain, one timed 256-spp launch -------------
+    trace.reset_launches()
+    img_e, n_e = render_fn(scene, cam, film, eager, spp=LIGHTS_PERSIST_SPP,
+                           seed=0, device=DEV)
+    torch.cuda.synchronize()
+    trace_launches = dict(trace.LAUNCHES)
+    img_r, n_r = render_persistent(integ, cam, LIGHTS_PERSIST_SPP, seed=0)
+    n_e, n_r = int(n_e), int(n_r)
+    print(f"[lights persistent] {LIGHTS_PERSIST_SPP} spp: {n_r} rays (eager "
+          f"{n_e}, trace launches {trace_launches}), mean "
+          f"{img_r.mean().item():.5f} (eager {img_e.mean().item():.5f})",
+          flush=True)
+    check(bool(torch.isfinite(img_r).all()), "lights persistent NaN/Inf")
+    image_rule(img_r, img_e, f"lights render_persistent vs eager, "
+                             f"{LIGHTS_PERSIST_SPP} spp")
+    check(abs(n_r - n_e) <= 1e-4 * n_e, f"lights persistent rays {n_r}")
+    for name in ("trace_closest", "trace_any"):
+        out[name]["launches"] = trace_launches[name]
+    sub = slice(0, None, LIGHTS_PLAIN_LANES)
+    pst = torch.cat([st0, torch.zeros_like(st0[:8])])
+    pst_s = pst[:, sub].contiguous()
+    pix_s, samp_s = pix[sub].contiguous(), samp[sub].contiguous()
+    k = mk.run_persistent(tables, rr, depth, LIGHTS_PLAIN_SPP, cam, pst_s,
+                          pix_s, samp_s, 0)
+    plain_ms, p = events_ms(lambda: mk.persistent_plain(
+        tables, rr, depth, LIGHTS_PLAIN_SPP, cam, pst_s, pix_s, samp_s, 0))
+    err = compare_exact(f"lights mega_persistent, {pix_s.shape[0]} lanes x "
+                        f"{LIGHTS_PLAIN_SPP} spp", k, p)
+    run_p = lambda spp: mk.run_persistent(tables, rr, depth, spp, cam, pst,
+                                          pix, samp, 0)
+    run_p(LIGHTS_TIMED_SPP)
+    mk.reset_launches()
+    ms, o = events_ms(lambda: run_p(LIGHTS_TIMED_SPP))
+    launches = mk.LAUNCHES["mega_persistent"]
+    rays = int(o[22].sum()) + int(o[23].sum())
+    check((o[17] == LIGHTS_TIMED_SPP).all().item(), "lights spp not done")
+    check(bool(torch.isfinite(o[18:21]).all()), "lights persistent NaN/Inf")
+    print(f"[lights persistent] {res}², {LIGHTS_TIMED_SPP} spp: one launch "
+          f"{ms:.4f} ms (CUDA events), {rays} rays, {rays / ms * 1e3:.6g} "
+          f"rays/s in the kernel, mean "
+          f"{(o[18:21] / LIGHTS_TIMED_SPP).mean().item():.5f} ({card})",
+          flush=True)
+    out["mega_persistent"] = {
+        "launches": launches, "ms": ms, "max_abs_err": err,
+        "plain_ms": plain_ms,
+        "plain_shape": f"{pix_s.shape[0]} lanes x {LIGHTS_PLAIN_SPP} spp",
+        "ms_at_plain_shape": time_ms(lambda: mk.run_persistent(
+            tables, rr, depth, LIGHTS_PLAIN_SPP, cam, pst_s, pix_s, samp_s,
+            0), 3, warmup=1),
+        **mega_bound(f"lights mega_persistent, {LIGHTS_TIMED_SPP} spp",
+                     work_pass, int(o[22].sum()), int(o[23].sum()),
+                     LIGHTS_TIMED_SPP * pix.shape[0], pix.shape[0], 24, 24,
+                     tables, card)}
+    del scene, tables, integ
+
+    # ---- 18. thin lens: Cornell, aperture 0.05, focus 2 -------------------
+    cornell = compile_scene(cornell_box(), device=DEV)
+    lens = dataclasses.replace(cornell_camera(res, res), **LENS)
+    ok, why = MegaPathTracer.supports(cornell, lens, film)
+    check(ok, f"MegaPathTracer refuses the thin lens: {why}")
+    integ = MegaPathTracer.for_scene(cornell, max_depth=depth)
+    tables = integ.tables
+    st0 = initial_state(*mk.primary_rays(lens, 0, pix, 0))
+    pst = torch.cat([st0, torch.zeros_like(st0[:8])])
+    k = mk.run_persistent(tables, rr, depth, LIGHTS_PLAIN_SPP, lens, pst,
+                          pix, samp, 0)
+    p = mk.persistent_plain(tables, rr, depth, LIGHTS_PLAIN_SPP, lens, pst,
+                            pix, samp, 0)
+    lens_err = compare_exact(f"thin-lens mega_persistent, {LIGHTS_PLAIN_SPP} "
+                             "spp", k, p)
+    img_e, n_e = render_fn(cornell, lens, film, PathTracer(max_depth=depth),
+                           spp=LIGHTS_PERSIST_SPP, seed=0, device=DEV)
+    img_r, n_r = render_persistent(integ, lens, LIGHTS_PERSIST_SPP, seed=0)
+    pin = render_persistent(integ, cornell_camera(res, res),
+                            LIGHTS_PERSIST_SPP, seed=0)[0]
+    n_e, n_r = int(n_e), int(n_r)
+    blur = (img_r - pin).abs().mean().item()
+    print(f"[thin lens] {LIGHTS_PERSIST_SPP} spp: {n_r} rays (eager {n_e}),"
+          f" mean {img_r.mean().item():.5f} (eager "
+          f"{img_e.mean().item():.5f}); mean |thin lens - pinhole| "
+          f"{blur:.4g}", flush=True)
+    image_rule(img_r, img_e, f"thin-lens render_persistent vs eager, "
+                             f"{LIGHTS_PERSIST_SPP} spp")
+    check(abs(n_r - n_e) <= 1e-4 * n_e, f"thin-lens rays {n_r} vs {n_e}")
+    check(blur > 1e-3, "the thin lens does not blur")
+    ms_lens = time_ms(lambda: mk.run_persistent(
+        tables, rr, depth, PERSIST_SPP, lens, pst, pix, samp, 0), 3,
+        warmup=1)
+    print(f"[thin lens] mega_persistent, {PERSIST_SPP} spp: {ms_lens:.4f} "
+          f"ms ({card})", flush=True)
+    out["mega_persistent"]["thin_lens"] = {"max_abs_err": lens_err,
+                                           f"ms_{PERSIST_SPP}_spp": ms_lens}
+    del cornell, tables, integ
+
+    # ---- 19. the shade kernel under point, spot, directional and sky ------
+    scene, cam4 = four_materials(res, lights=True)
+    ok, why = sk.supports(scene)
+    check(ok, f"shade refuses the four-material scene with lights: {why}")
+    fam_ops = family_ops(mk.build_mega_tables(scene))
+    tracer = PathTracer(max_depth=SHADE_DEPTH).specialized_for(scene)
+    st = initial_state(*mk.primary_rays(cam4, 0, pix, 0))
+    err, timing = 0.0, {}
+    for b in range(max(SHADE_BOUNCES) + 1):
+        if b in SHADE_BOUNCES:
+            label = f"shade with lights, bounce {b}"
+            packed = tracer.shade_inputs(scene, st, 0, pix, samp, b)
+            run = lambda: sk.run_shade(scene, packed, pix, samp, 0, b,
+                                       tracer.rr_depth, SHADE_DEPTH)
+            plain = lambda: sk.shade_plain(scene, packed, pix, samp, 0, b,
+                                           tracer.rr_depth, SHADE_DEPTH)
+            err = max(err, compare_exact(label, run(), plain()))
+            hit = packed[sk.I_HIT] > 0.5
+            delta = hit & (packed[sk.I_NDELTA] > 0.5)
+            env = hit & ~delta & (packed[sk.I_NDIST] > 1e29)
+            lanes = sk.shadow_rays(packed, b, SHADE_DEPTH)[4]
+            print(f"[shade lights] {label}: {hit.float().mean().item():.4f} "
+                  f"of lanes hit, NEE delta on "
+                  f"{delta.float().mean().item():.4f}, sky on "
+                  f"{env.float().mean().item():.4f}, "
+                  f"{lanes.float().mean().item():.4f} trace a shadow ray",
+                  flush=True)
+            check(bool(delta.any()) and bool(env.any()),
+                  f"{label}: no delta or sky NEE sample")
+            timing[b] = {"ms": time_ms(run, 50),
+                         "any_hit_ms": shade_yardstick(scene, packed, b,
+                                                       SHADE_DEPTH),
+                         "plain_ms": time_ms(plain, 2, warmup=1),
+                         **shade_bound(label, scene, packed, b,
+                                       tracer.rr_depth, fam_ops, card)}
+            print(f"[shade lights] {label}: kernel "
+                  f"{timing[b]['ms'] * 1e3:.2f} us/launch, any-hit yardstick "
+                  f"{timing[b]['any_hit_ms'] * 1e3:.2f} us ({card})",
+                  flush=True)
+        st = tracer.bounce(scene, st, 0, pix, samp, b)[0]
+    results = {}
+    for mode in ("off", "on"):
+        integ_e = PathTracer(max_depth=SHADE_DEPTH, fused_shade=mode)
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        img, n = render_fn(scene, cam4, film, integ_e, spp=SPP, seed=0,
+                           device=DEV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        results[mode] = (img, int(n), sk.LAUNCHES["shade"])
+        print(f"[shade lights fused {mode}] {res}², {SHADE_DEPTH} bounces, "
+              f"{SPP} spp: {wall:.3f} s, {int(n)} rays, {int(n) / wall:.4g} "
+              f"rays/s, mean {img.mean().item():.5f} ({card})", flush=True)
+        check(bool(torch.isfinite(img).all()), f"fused {mode}: NaN/Inf")
+    (img_off, n_off, _), (img_on, n_on, l_on) = results["off"], results["on"]
+    check(l_on == SHADE_DEPTH * SPP, f"shade launched {l_on} times")
+    image_rule(img_on, img_off, f"lights fused on vs off, {SPP} spp")
+    check(abs(n_on - n_off) <= 1e-4 * n_off, f"lights rays {n_on} vs {n_off}")
+    out["shade"] = {"launches": l_on, "max_abs_err": err,
+                    **timing[SHADE_BOUNCES[0]],
+                    "bounce_3": timing[SHADE_BOUNCES[1]]}
+    for k in kernels:
+        k["lights_composites"] = out[k["name"]]
 
 
 def walk_phase(card, cases):
@@ -1678,6 +2156,7 @@ def main():
     walk["bench"] = bench_rate
     join_variant_builds(*variant_builds)
     walk_phase(card, walk)
+    lights_phases(card, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

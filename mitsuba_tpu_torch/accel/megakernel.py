@@ -1,8 +1,9 @@
 """Path-tracing megakernels: one bounce, whole paths, or a pixel's whole
 sample loop in one CUDA kernel (port of mitsuba_tpu/accel/megakernel.py
-for surface scenes: pinhole camera, flat or smooth shading normals, the
-14 leaf BSDF families with the two-sided adapter, area emitters; no
-composites, medium or textures).
+for surface scenes: pinhole or thin-lens camera, flat or smooth shading
+normals, the 14 leaf BSDF families with the two-sided adapter, the
+composites over leaf children, area, point, spot and directional
+emitters and the constant environment; no medium or textures).
 
 Three entry points share one device bounce (csrc/megakernel.cu):
 
@@ -17,7 +18,10 @@ MegaPlainTracer: the port's eager wavefront bounce (PathTracer(accel=
 "plain"), integrator/path.py) whose shading tail runs this module's
 plain versions of the JAX megakernel's device BSDF helpers
 (bsdf_eval_pdf, bsdf_sample) on the tables' material rows, the forms the
-kernel computes, so kernel and plain version agree lane by lane.
+kernel computes (with the composites, composite_eval_pdf and
+composite_sample), so kernel and plain version agree lane by lane; its
+NEE over every emitter type and the sky on escape are the eager ones
+(emitter/emitter.py), which the kernel follows op for op.
 `bounce_plain` is one call, `path_plain` loops it, and `persistent_plain`
 runs path_plain for every sample index and sums L and the counts, which
 is the persistent kernel's per-pixel estimate. The fused shade kernel
@@ -40,17 +44,19 @@ import numpy as np
 import torch
 
 from ..bsdf import rtrans
-from ..bsdf.bsdf import PORTED_FAMILIES, BSDFSample
+from ..bsdf.bsdf import COMPOSITE_FAMILIES, LEAF_FAMILIES as _LEAVES
+from ..bsdf.bsdf import BSDFSample
 from ..core.math import coordinate_system
 from ..core.warp import INV_PI, square_to_cosine_hemisphere
 from ..integrator.path import PathTracer, initial_state
 from ..render import sample_camera
-from ..scene.scene import (MAT_ANISO_ROUGHDIFFUSE, MAT_CONDUCTOR,
-                           MAT_DIELECTRIC, MAT_DIFFTRANS, MAT_DIFFUSE,
-                           MAT_NULL, MAT_PHONG, MAT_PLASTIC,
+from ..scene.scene import (MAT_ANISO_ROUGHDIFFUSE, MAT_COATING,
+                           MAT_CONDUCTOR, MAT_DIELECTRIC, MAT_DIFFTRANS,
+                           MAT_DIFFUSE, MAT_MIXTURE, MAT_NULL, MAT_PHONG,
+                           MAT_PLASTIC, MAT_ROUGH_COATING,
                            MAT_ROUGH_CONDUCTOR, MAT_ROUGH_DIELECTRIC,
                            MAT_ROUGH_DIFFUSE, MAT_ROUGH_PLASTIC,
-                           MAT_THIN_DIELECTRIC, MAT_WARD, SceneData)
+                           MAT_THIN_DIELECTRIC, MAT_WARD, EM_AREA, SceneData)
 from . import trace
 
 # RNG dims (mirror integrator/common.py)
@@ -59,7 +65,7 @@ DIMS_PER_BOUNCE = 8
 DIM_NEE_SEL, DIM_NEE_POS, DIM_BSDF_U2, DIM_BSDF_U1, DIM_RR = 0, 1, 2, 3, 4
 DIM_MEDIUM, DIM_PHASE = 5, 6
 DIM_PIXEL = 0       # sensor jitter dim
-DIM_APERTURE = 1    # thin-lens aperture dim (not ported)
+DIM_APERTURE = 1    # thin-lens aperture dim
 
 N_STATE = 16        # o xyz, d xyz, throughput rgb, L rgb, active,
                     # prev_pdf, prev_delta, eta_scale
@@ -114,6 +120,9 @@ class MegaTables:
     real_tris: int           # the walk's stop (trace.real_tris, checked)
     m_real: int
     et_real: int             # real emissive-triangle rows (at least 1)
+    env: int                 # the constant environment's emitter row, -1
+    ext: bool                # non-area emitters or composites: the
+                             # kernels' kExt instantiations
     scene: SceneData
     plain_scene: SceneData
 
@@ -226,7 +235,11 @@ def build_mega_tables(scene: SceneData) -> MegaTables:
         mat=f32(mat), em_rows=f32(rows), em_meta=f32(meta),
         em_cdf=scene.em_pmf.cdf.contiguous(), em_count=n_em, n_tris=n_real,
         real_tris=trace.real_tris(scene),
-        m_real=mat.shape[0], et_real=max(et, 1), scene=scene,
+        m_real=mat.shape[0], et_real=max(et, 1),
+        env=int(scene.env_id) if n_em else -1,
+        ext=bool((meta[:n_em, 2] != EM_AREA).any()
+                 or np.isin(mat[:, 12], sorted(COMPOSITE_FAMILIES)).any()),
+        scene=scene,
         plain_scene=scene._replace(tri_attr=f32(corners)))
 
 
@@ -234,21 +247,24 @@ def build_mega_tables(scene: SceneData) -> MegaTables:
 # camera (the pinhole PerspectiveCamera and render.py's pixel jitter)
 # ---------------------------------------------------------------------------
 
+N_CAMERA = 18
+
+
 def camera_consts(camera) -> list[float]:
-    """The 16 camera constants of the in-kernel regeneration, rounded to
-    float32 as sensor.py rounds them: rotation rows r00..r22
+    """The N_CAMERA camera constants of the in-kernel regeneration,
+    rounded to float32 as sensor.py rounds them: rotation rows r00..r22
     (camera→world), position xyz, tan(fov_x/2), height/width, width,
-    height."""
-    if float(getattr(camera, "aperture_radius", 0.0)) > 0.0:
-        raise NotImplementedError("thin-lens camera regeneration is not "
-                                  "ported")
+    height, the thin lens's aperture radius (0: pinhole) and focus
+    distance."""
     r = np.asarray(camera.to_world[:3, :3], np.float32)
     t = np.asarray(camera.to_world[:3, 3], np.float32)
     tan_half = np.float32(np.tan(np.radians(camera.fov_x) / 2.0))
     aspect = np.float32(camera.height / camera.width)
     return ([float(x) for x in r.reshape(-1)] + [float(x) for x in t]
             + [float(tan_half), float(aspect), float(camera.width),
-               float(camera.height)])
+               float(camera.height),
+               float(np.float32(max(camera.aperture_radius, 0.0))),
+               float(np.float32(camera.focus_distance))])
 
 
 def primary_rays(camera, seed, pixel, samp):
@@ -266,13 +282,15 @@ class MegaPlainTracer(PathTracer):
     """The megakernel bounce in PyTorch: PathTracer(accel="plain")'s
     bounce on the tables' plain_scene, whose shading tail evaluates and
     samples the BSDF through the device helpers' plain versions
-    (bsdf_eval_pdf, bsdf_sample) on the tables' material rows, with the
-    two-sided flip of wi's and wo's local z. It differs from PathTracer
-    in rounding only."""
+    (composite_eval_pdf, composite_sample: bsdf_eval_pdf and bsdf_sample
+    for leaf lanes) on the tables' material rows, with the two-sided flip
+    of wi's and wo's local z. It differs from PathTracer in rounding
+    only."""
     tables: MegaTables | None = None
 
     def _rows(self, v):
-        return self.tables.mat[torch.clamp(v.its.mat_id, min=0)].T
+        """(top, child A, child B) material rows of the vertex's lanes."""
+        return child_rows(self.tables, v.its.mat_id)
 
     @staticmethod
     def _flip(mat, wi):
@@ -280,19 +298,19 @@ class MegaPlainTracer(PathTracer):
         return torch.where((mat[15] > 0.5) & (wi[:, 2] < 0.0), -1.0, 1.0)
 
     def _bsdf_eval(self, v, wi, wo):
-        mat = self._rows(v)
-        fsign = self._flip(mat, wi)
-        *f, pdf = bsdf_eval_pdf(mat, wi[:, 0], wi[:, 1], wi[:, 2] * fsign,
-                                wo[:, 0], wo[:, 1], wo[:, 2] * fsign,
-                                self.families)
+        top, mat_a, mat_b = self._rows(v)
+        fsign = self._flip(top, wi)
+        *f, pdf = composite_eval_pdf(
+            top, mat_a, mat_b, wi[:, 0], wi[:, 1], wi[:, 2] * fsign,
+            wo[:, 0], wo[:, 1], wo[:, 2] * fsign, self.families)
         return torch.stack(f, -1), pdf
 
     def _bsdf_sample(self, v, wi, u2, u1):
-        mat = self._rows(v)
-        fsign = self._flip(mat, wi)
-        (nwx, nwy, nwz, w_r, w_g, w_b, pdf, is_delta, eta) = bsdf_sample(
-            mat, wi[:, 0], wi[:, 1], wi[:, 2] * fsign, u2[:, 0], u2[:, 1],
-            u1, self.families)
+        top, mat_a, mat_b = self._rows(v)
+        fsign = self._flip(top, wi)
+        (nwx, nwy, nwz, w_r, w_g, w_b, pdf, is_delta, eta) = composite_sample(
+            top, mat_a, mat_b, wi[:, 0], wi[:, 1], wi[:, 2] * fsign,
+            u2[:, 0], u2[:, 1], u1, self.families)
         return BSDFSample(torch.stack([nwx, nwy, nwz * fsign], -1),
                           torch.stack([w_r, w_g, w_b], -1), pdf, is_delta,
                           eta)
@@ -381,7 +399,7 @@ MEGA_COS_FAMILIES = frozenset({
     MAT_DIFFUSE, MAT_ROUGH_DIFFUSE, MAT_PLASTIC, MAT_PHONG, MAT_WARD,
     MAT_DIFFTRANS, MAT_ROUGH_PLASTIC, MAT_ANISO_ROUGHDIFFUSE})
 # the leaf families of the JAX MEGA_FAMILIES: the megakernels' dispatch
-LEAF_FAMILIES = frozenset(PORTED_FAMILIES)
+LEAF_FAMILIES = frozenset(_LEAVES)
 # the fused shade kernel's: its input rows carry material columns 0..12
 # and 15, not the rough-plastic transmittance rows
 SHADE_FAMILIES = LEAF_FAMILIES - {MAT_ROUGH_PLASTIC}
@@ -1071,6 +1089,215 @@ def bsdf_sample(mat, wix, wiy, wiz, u0, u1, uc, families=None):
 
 
 # ---------------------------------------------------------------------------
+# device composite helpers, plain versions (mixture, coating, rough coating)
+# ---------------------------------------------------------------------------
+# The JAX megakernel's composite branches (_bounce_rows: child resolution
+# :781-800, the NEE eval :1004-1083, sampling :1135-1299) over per-lane
+# rows: `top` is the lane's own material row, `mat_a` and `mat_b` its
+# children's (slots 18 and 19; a leaf lane's own row), each a [N_MAT, N]
+# column block as for bsdf_eval_pdf. A child is a leaf (MegaPathTracer
+# refuses nested composites). csrc/megakernel.cu computes them op for op.
+
+def child_rows(tables: MegaTables, mat_id):
+    """The rows (top, child A, child B) of the lanes' materials, each
+    [N_MAT, N]: a composite's children by its slots 18 and 19 (B: a
+    mixture's only), a leaf lane's own row for both."""
+    mid = torch.clamp(mat_id, min=0)
+    top = tables.mat[mid].T
+    mtype = top[12]
+    comp = ((mtype == MAT_MIXTURE) | (mtype == MAT_COATING)
+            | (mtype == MAT_ROUGH_COATING))
+    ida = torch.where(comp, top[18].long(), mid)
+    idb = torch.where(mtype == MAT_MIXTURE, top[19].long(), mid)
+    return top, tables.mat[ida].T, tables.mat[idb].T
+
+
+def _coat_in(vx, vy, vz, inv_ce):
+    """A direction bent into the coat: sinθ' = sinθ/η, same hemisphere."""
+    x, y = vx * inv_ce, vy * inv_ce
+    z = torch.sqrt(torch.clamp(1.0 - x * x - y * y, min=0.0)) \
+        * torch.sign(vz)
+    return x, y, z
+
+
+def _coat_setup(top, wix, wiy, wiz):
+    """(η, 1/η, F(wi), wi bent into the coat) of the coat row."""
+    c_eta = torch.clamp(top[0], min=1.0 + 1e-4)
+    inv_ce = 1.0 / c_eta
+    return (c_eta, inv_ce, fresnel_diel_f(wiz, c_eta),
+            _coat_in(wix, wiy, wiz, inv_ce))
+
+
+def _coat_terms(top, mat_a, coat, wox, woy, woz, families):
+    """f·cosθo (three rows) and pdf of the through-coat nested component
+    toward wo: the child at the bent directions, absorption, both
+    interface transmittances and the Jacobian (coat_terms)."""
+    c_eta, inv_ce, fi_c, (cix, ciy, ciz) = coat
+    fo = fresnel_diel_f(woz, c_eta)
+    cox, coy, coz = _coat_in(wox, woy, woz, inv_ce)
+    *e, pn = bsdf_eval_pdf(mat_a, cix, ciy, ciz, cox, coy, coz, families)
+    path = (1.0 / torch.clamp(torch.abs(ciz), min=1e-4)
+            + 1.0 / torch.clamp(torch.abs(coz), min=1e-4))
+    jac = torch.abs(woz) / torch.clamp(torch.abs(coz), min=1e-6) \
+        * (inv_ce * inv_ce)
+    sc = (1.0 - fi_c) * (1.0 - fo) * jac
+    f = [e[ch] * torch.exp(-top[1 + ch] * path) * sc for ch in range(3)]
+    pp = (1.0 - fi_c) * pn * torch.abs(woz) \
+        / torch.clamp(c_eta * c_eta * torch.abs(coz), min=1e-9)
+    return f, pp
+
+
+def _rc_spec(top, c_eta, wix, wiy, wiz, wox, woy, woz):
+    """f·cosθo and pdf of the rough coat's GGX reflection lobe, upper
+    hemisphere, visible-normal pdf (rc_spec_terms)."""
+    rc_a = torch.clamp(top[9], min=1e-4)
+    hx, hy, hz = normalize3(wix + wox, wiy + woy, wiz + woz)
+    d_h = ggx_d(hx, hy, hz, rc_a)
+    wih = wix * hx + wiy * hy + wiz * hz
+    f_h = fresnel_diel_f(wih, c_eta)
+    g1i = ggx_g1(wix, wiy, wiz, hx, hy, hz, rc_a)
+    g_h = g1i * ggx_g1(wox, woy, woz, hx, hy, hz, rc_a)
+    upf = ((wiz > 0.0) & (woz > 0.0)).to(wiz.dtype)
+    val = top[4] * f_h * d_h * g_h \
+        / torch.clamp(4.0 * torch.abs(wiz), min=1e-7) * upf
+    pdf_h = g1i * torch.abs(wih) * d_h / torch.clamp(torch.abs(wiz),
+                                                      min=1e-12)
+    woh = wox * hx + woy * hy + woz * hz
+    return val, pdf_h / torch.clamp(4.0 * torch.abs(woh), min=1e-7) * upf
+
+
+def composite_eval_pdf(top, mat_a, mat_b, wix, wiy, wiz, wox, woy, woz,
+                       families):
+    """bsdf_eval_pdf with the composites: a mixture's convex sum of its
+    children, a coat's nested child through the interface, a rough
+    coat's too plus its reflection lobe; leaf lanes as bsdf_eval_pdf."""
+    fams = _families(top, families)
+    mtype = top[12]
+    *f, pdf = bsdf_eval_pdf(mat_a, wix, wiy, wiz, wox, woy, woz, fams)
+    if MAT_MIXTURE in fams:
+        is_mix = mtype == MAT_MIXTURE
+        w_mix = torch.where(is_mix, top[20], 1.0)
+        *fb, pdf_b = bsdf_eval_pdf(mat_b, wix, wiy, wiz, wox, woy, woz, fams)
+        one_w = 1.0 - w_mix
+        f = [torch.where(is_mix, w_mix * f[ch] + one_w * fb[ch], f[ch])
+             for ch in range(3)]
+        pdf = torch.where(is_mix, w_mix * pdf + one_w * pdf_b, pdf)
+    if fams & {MAT_COATING, MAT_ROUGH_COATING}:
+        coat = _coat_setup(top, wix, wiy, wiz)
+        cf, cp = _coat_terms(top, mat_a, coat, wox, woy, woz, fams)
+        if MAT_COATING in fams:
+            is_coat = mtype == MAT_COATING
+            f = [torch.where(is_coat, cf[ch], f[ch]) for ch in range(3)]
+            pdf = torch.where(is_coat, cp, pdf)
+        if MAT_ROUGH_COATING in fams:
+            is_rc = mtype == MAT_ROUGH_COATING
+            sv, sp = _rc_spec(top, coat[0], wix, wiy, wiz, wox, woy, woz)
+            f = [torch.where(is_rc, cf[ch] + sv, f[ch]) for ch in range(3)]
+            pdf = torch.where(is_rc, coat[2] * sp + cp, pdf)
+    return f[0], f[1], f[2], pdf
+
+
+def composite_sample(top, mat_a, mat_b, wix, wiy, wiz, u0, u1, uc,
+                     families):
+    """bsdf_sample with the composites (same outputs): a mixture picks a
+    child with uc (reused in the child's own stream) and weights a
+    smooth sample by the whole mixture's f/pdf; a coat picks its mirror
+    lobe (smooth) or GGX lobe (rough) with probability F(wi), else the
+    child sampled inside the coat and refracted out (total internal
+    reflection: dead); leaf lanes as bsdf_sample."""
+    fams = _families(top, families)
+    mtype = top[12]
+    if MAT_MIXTURE not in fams:
+        out = list(bsdf_sample(mat_a, wix, wiy, wiz, u0, u1, uc, fams))
+    else:
+        is_mix = mtype == MAT_MIXTURE
+        w_mix = torch.where(is_mix, top[20], 1.0)
+        uc_a = torch.where(is_mix, torch.clamp(
+            uc / torch.clamp(w_mix, min=1e-6), 0.0, 1.0 - 1e-6), uc)
+        uc_b = torch.clamp((uc - w_mix) / torch.clamp(1.0 - w_mix, min=1e-6),
+                           0.0, 1.0 - 1e-6)
+        a = bsdf_sample(mat_a, wix, wiy, wiz, u0, u1, uc_a, fams)
+        b = bsdf_sample(mat_b, wix, wiy, wiz, u0, u1, uc_b, fams)
+        pick_a = uc < w_mix
+        mo = [torch.where(pick_a, a[j], b[j]) for j in range(3)]
+        d_m = (pick_a & a[7]) | (~pick_a & b[7])
+        *ea, pa_m = bsdf_eval_pdf(mat_a, wix, wiy, wiz, *mo, fams)
+        *eb, pb_m = bsdf_eval_pdf(mat_b, wix, wiy, wiz, *mo, fams)
+        one_w = 1.0 - w_mix
+        pdf_mix = w_mix * pa_m + one_w * pb_m
+        inv_pm = torch.where(pdf_mix > 1e-12,
+                             1.0 / torch.clamp(pdf_mix, min=1e-12), 0.0)
+        pdf_delta = torch.where(pick_a, w_mix, one_w) \
+            * torch.where(pick_a, a[6], b[6])
+        out = [torch.where(is_mix, mo[j], a[j]) for j in range(3)]
+        out += [torch.where(is_mix, torch.where(
+            d_m, torch.where(pick_a, a[3 + ch], b[3 + ch]),
+            (w_mix * ea[ch] + one_w * eb[ch]) * inv_pm), a[3 + ch])
+            for ch in range(3)]
+        out += [torch.where(is_mix, torch.where(d_m, pdf_delta, pdf_mix),
+                            a[6]),
+                (is_mix & d_m) | (~is_mix & a[7]),
+                torch.where(is_mix, torch.where(pick_a, a[8], b[8]), a[8])]
+    if fams & {MAT_COATING, MAT_ROUGH_COATING}:
+        coat = _coat_setup(top, wix, wiy, wiz)
+        c_eta, _, fi_c, (cix, ciy, ciz) = coat
+        pick_sp = uc < fi_c
+        u1_n = torch.clamp((uc - fi_c) / torch.clamp(1.0 - fi_c, min=1e-6),
+                           0.0, 1.0 - 1e-6)
+        nc = bsdf_sample(mat_a, cix, ciy, ciz, u0, u1, u1_n, fams)
+        ox2, oy2 = nc[0] * c_eta, nc[1] * c_eta
+        sin2_o = ox2 * ox2 + oy2 * oy2
+        oz2 = torch.sqrt(torch.clamp(1.0 - sin2_o, min=0.0)) \
+            * torch.sign(nc[2])
+        t_out = 1.0 - fresnel_diel_f(oz2, c_eta)
+        spath = (1.0 / torch.clamp(torch.abs(ciz), min=1e-4)
+                 + 1.0 / torch.clamp(torch.abs(nc[2]), min=1e-4))
+        wn = [nc[3 + ch] * torch.exp(-top[1 + ch] * spath) * t_out
+              for ch in range(3)]
+        pdf_no = (1.0 - fi_c) * nc[6] * torch.abs(oz2) \
+            / torch.clamp(c_eta * c_eta * torch.abs(nc[2]), min=1e-9)
+        okf = (~(sin2_o >= 1.0) & (nc[6] > 0.0)).to(wix.dtype)
+        o2 = (ox2, oy2, oz2)
+        if MAT_COATING in fams:
+            sel = mtype == MAT_COATING
+            spec = (-wix, -wiy, wiz)
+            for j in range(3):
+                out[j] = torch.where(sel, torch.where(pick_sp, spec[j],
+                                                      o2[j]), out[j])
+                out[3 + j] = torch.where(sel, torch.where(
+                    pick_sp, top[4], okf * wn[j]), out[3 + j])
+            out[6] = torch.where(sel, torch.where(pick_sp, fi_c,
+                                                  okf * pdf_no), out[6])
+            out[7] = (sel & (pick_sp | (~pick_sp & nc[7]))) | (~sel & out[7])
+            out[8] = torch.where(sel, 1.0, out[8])
+        if MAT_ROUGH_COATING in fams:
+            sel = mtype == MAT_ROUGH_COATING
+            rmx, rmy, rmz = _vndf(torch.clamp(top[9], min=1e-4), wix, wiy,
+                                  wiz, u0, u1)
+            wim_r = wix * rmx + wiy * rmy + wiz * rmz
+            rs = (2.0 * wim_r * rmx - wix, 2.0 * wim_r * rmy - wiy,
+                  2.0 * wim_r * rmz - wiz)
+            ro = [torch.where(pick_sp, rs[j], o2[j]) for j in range(3)]
+            rcf, rcp = _coat_terms(top, mat_a, coat, *ro, fams)
+            rsv, rsp = _rc_spec(top, c_eta, wix, wiy, wiz, *ro)
+            pdf_all = fi_c * rsp + rcp
+            ipa = torch.where(pdf_all > 1e-9,
+                              1.0 / torch.clamp(pdf_all, min=1e-9), 0.0)
+            nested_delta = ~pick_sp & nc[7]
+            live = (~(pick_sp & (rs[2] <= 0.0))).to(wix.dtype)
+            for j in range(3):
+                out[j] = torch.where(sel, ro[j], out[j])
+                out[3 + j] = torch.where(sel, torch.where(
+                    nested_delta, okf * wn[j], (rcf[j] + rsv) * ipa * live),
+                    out[3 + j])
+            out[6] = torch.where(sel, torch.where(
+                nested_delta, okf * pdf_no, pdf_all * live), out[6])
+            out[7] = (sel & nested_delta) | (~sel & out[7])
+            out[8] = torch.where(sel, 1.0, out[8])
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
 # kernels: build, bind, launch
 # ---------------------------------------------------------------------------
 
@@ -1086,7 +1313,8 @@ _TABLE_ARGS = ([ctypes.c_void_p, ctypes.c_void_p,        # woop aabb
                 ctypes.c_int, ctypes.c_int]              # C, real tris
                + [ctypes.c_void_p, ctypes.c_void_p]      # attr mat
                + [ctypes.c_void_p, ctypes.c_int]         # em_rows et_real
-               + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int])  # meta cdf E
+               + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]  # meta cdf E
+               + [ctypes.c_int, ctypes.c_int])           # env ext
 
 
 def _library():
@@ -1117,9 +1345,10 @@ def _route(state):
 
 
 def _launch(name, tables: MegaTables, state, rows_in, rows_out, pixel,
-            samp, seed, ints, extra=()):
+            samp, seed, ints, extra=(), ext=False):
     """Check the inputs, allocate the output and launch entry `name` on
-    PyTorch's current stream; raises on a refused launch."""
+    PyTorch's current stream, in the kExt instantiation when the tables
+    (or `ext`) ask for it; raises on a refused launch."""
     dev = state.device
     n = state.shape[1]
     check = trace.check_tensor
@@ -1148,7 +1377,8 @@ def _launch(name, tables: MegaTables, state, rows_in, rows_out, pixel,
                  tables.mat.data_ptr(), tables.em_rows.data_ptr(),
                  tables.et_real, tables.em_meta.data_ptr(),
                  tables.em_cdf.data_ptr(),
-                 tables.em_count, state.data_ptr(), out.data_ptr(),
+                 tables.em_count, tables.env, int(tables.ext or ext),
+                 state.data_ptr(), out.data_ptr(),
                  pixel.data_ptr(), samp.data_ptr(), n,
                  seed & 0xFFFFFFFF, *ints, *extra, stream)
     if err != 0:
@@ -1184,16 +1414,17 @@ def run_path(tables: MegaTables, rr_depth, max_depth, n_bounces, state,
 def run_persistent(tables: MegaTables, rr_depth, max_depth, spp, camera,
                    state, pixel, samp0, seed):
     """Persistent path-regeneration render: every live lane completes
-    exactly `spp` paths of its pixel, regenerating a pinhole camera ray at
-    sample samp0 + done whenever a path dies. state [24, N] (the first
+    exactly `spp` paths of its pixel, regenerating a camera ray (pinhole
+    or thin lens) at sample samp0 + done whenever a path dies. state [24, N] (the first
     camera ray in rows 0..15 with active 1, rows 16.. zero); pixel, samp0
     [N] int32. Returns the final [24, N] state: L_sum rows 18:21 / spp is
     the lane's radiance estimate, rows 22 and 23 the exact ray counts."""
     if not _route(state):
         return persistent_plain(tables, rr_depth, max_depth, spp, camera,
                                 state, pixel, samp0, seed)
-    cam = (ctypes.c_float * 16)(*camera_consts(camera))
+    cam = (ctypes.c_float * N_CAMERA)(*camera_consts(camera))
     iter_cap = spp * max_depth + 8
     return _launch("mega_persistent", tables, state, N_PSTATE, N_PSTATE,
                    pixel, samp0, seed, (spp, max_depth, rr_depth, iter_cap),
-                   (ctypes.addressof(cam),))
+                   (ctypes.addressof(cam),),
+                   ext=float(camera.aperture_radius) > 0.0)

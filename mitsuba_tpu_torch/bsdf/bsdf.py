@@ -1,6 +1,7 @@
 """BSDFs in the local shading frame (port of mitsuba_tpu/bsdf/bsdf.py: the
-14 leaf families and the two-sided adapter; the composites are not
-ported).
+14 leaf families, the two-sided adapter and the composites: mixture,
+blend and mask (one convex-sum code), smooth coating and rough coating,
+each over leaf children).
 
 Conventions are the JAX package's: wi points toward the viewer; `eval`
 returns f(wi, wo)·|cosθo| (zero for delta lobes); `sample` returns (wo,
@@ -25,11 +26,13 @@ from ..core.warp import (INV_PI, square_to_cosine_hemisphere,
 from ..scene import scene as S
 from . import rtrans
 
-PORTED_FAMILIES = (S.MAT_DIFFUSE, S.MAT_CONDUCTOR, S.MAT_ROUGH_CONDUCTOR,
-                   S.MAT_DIELECTRIC, S.MAT_PLASTIC, S.MAT_ROUGH_DIELECTRIC,
-                   S.MAT_ROUGH_PLASTIC, S.MAT_PHONG, S.MAT_WARD,
-                   S.MAT_ROUGH_DIFFUSE, S.MAT_NULL, S.MAT_THIN_DIELECTRIC,
-                   S.MAT_DIFFTRANS, S.MAT_ANISO_ROUGHDIFFUSE)
+LEAF_FAMILIES = (S.MAT_DIFFUSE, S.MAT_CONDUCTOR, S.MAT_ROUGH_CONDUCTOR,
+                 S.MAT_DIELECTRIC, S.MAT_PLASTIC, S.MAT_ROUGH_DIELECTRIC,
+                 S.MAT_ROUGH_PLASTIC, S.MAT_PHONG, S.MAT_WARD,
+                 S.MAT_ROUGH_DIFFUSE, S.MAT_NULL, S.MAT_THIN_DIELECTRIC,
+                 S.MAT_DIFFTRANS, S.MAT_ANISO_ROUGHDIFFUSE)
+COMPOSITE_FAMILIES = (S.MAT_MIXTURE, S.MAT_COATING, S.MAT_ROUGH_COATING)
+PORTED_FAMILIES = LEAF_FAMILIES + COMPOSITE_FAMILIES
 
 
 class BSDFSample(NamedTuple):
@@ -41,9 +44,16 @@ class BSDFSample(NamedTuple):
 
 
 class MatInfo(NamedTuple):
-    """Resolved per-lane material row (no composites in the port)."""
-    mtype: torch.Tensor     # [N] type code
-    params: torch.Tensor    # [N, N_MAT_PARAMS]
+    """Resolved per-lane material: the top row and, for composites, the
+    child rows. For leaf lanes the children alias the top row and w_a is
+    1."""
+    mtype: torch.Tensor     # [N] top type code
+    params: torch.Tensor    # [N, N_MAT_PARAMS] top row
+    mtype_a: torch.Tensor   # [N] child-A type (== mtype: leaf)
+    params_a: torch.Tensor  # [N, N_MAT_PARAMS]
+    mtype_b: torch.Tensor   # [N] child-B type
+    params_b: torch.Tensor
+    w_a: torch.Tensor       # [N] mixture weight of child A
 
 
 def _falses(wi):
@@ -717,6 +727,8 @@ _SAMPLERS = {
 }
 
 
+
+
 def scene_families(scene: S.SceneData) -> tuple:
     """The sorted material type codes the scene uses (a host read)."""
     return tuple(sorted(set(scene.mat_type.tolist())))
@@ -728,11 +740,39 @@ def _codes(table, families):
     return [(c, f) for c, f in table.items() if c in families]
 
 
-def resolve_material(scene: S.SceneData, mat_id) -> MatInfo:
-    """One gather of the material rows (mat_id -1 reads row 0, as in the
-    JAX package; such lanes are masked by the caller)."""
+def _has_composite(families):
+    return families is None or any(c in families for c in COMPOSITE_FAMILIES)
+
+
+def _has_rough_coat(families):
+    return families is None or S.MAT_ROUGH_COATING in families
+
+
+def resolve_material(scene: S.SceneData, mat_id, families=None) -> MatInfo:
+    """Gather the material rows (mat_id -1 reads row 0, as in the JAX
+    package; such lanes are masked by the caller) and, when `families`
+    holds a composite code (None: all), each composite's child rows
+    through param slots 18 and 19 and its mixture weight (slot 20); leaf
+    lanes alias their own row with weight 1."""
     params = scene.mat_params[torch.clamp(mat_id, min=0)]
-    return MatInfo(params[:, 12].long(), params)
+    mtype = params[:, 12].long()
+    if not _has_composite(families):
+        return MatInfo(mtype, params, mtype, params, mtype, params,
+                       torch.ones_like(params[:, 0]))
+
+    def child(slot):
+        crow = scene.mat_params[torch.clamp(params[:, slot].long(), min=0)]
+        return crow[:, 12].long(), crow
+
+    is_comp = ((mtype == S.MAT_MIXTURE) | (mtype == S.MAT_COATING)
+               | (mtype == S.MAT_ROUGH_COATING))
+    ta, pa = child(18)
+    tb, pb = child(19)
+    w = torch.where(mtype == S.MAT_MIXTURE, params[:, 20], 1.0)
+    return MatInfo(mtype, params, torch.where(is_comp, ta, mtype),
+                   torch.where(is_comp[:, None], pa, params),
+                   torch.where(is_comp, tb, mtype),
+                   torch.where(is_comp[:, None], pb, params), w)
 
 
 def perturb_shading_frame(scene: S.SceneData, mat: MatInfo, frame, uv):
@@ -753,38 +793,305 @@ def _twosided_wi(params, wi):
     return torch.where(flip[:, None], _flip_z(wi), wi), flip
 
 
-def eval_bsdf_ex(mat: MatInfo, wi, wo, families=None):
-    """f(wi, wo)·cosθo of the smooth component (zero for delta lobes)."""
-    wi, flip = _twosided_wi(mat.params, wi)
+def eval_bsdf(mtype, params, wi, wo, families=None):
+    """f(wi, wo)·cosθo of the leaf rows' smooth component (zero for delta
+    lobes and for composite codes)."""
+    wi, flip = _twosided_wi(params, wi)
     wo = torch.where(flip[:, None], _flip_z(wo), wo)
     out = torch.zeros_like(wi)
     for code, fn in _codes(_SMOOTH_EVAL, families):
-        out = torch.where((mat.mtype == code)[:, None],
-                          fn(mat.params, wi, wo), out)
+        out = torch.where((mtype == code)[:, None], fn(params, wi, wo), out)
     return out
 
 
-def pdf_bsdf_ex(mat: MatInfo, wi, wo, families=None):
-    wi, flip = _twosided_wi(mat.params, wi)
+def pdf_bsdf(mtype, params, wi, wo, families=None):
+    wi, flip = _twosided_wi(params, wi)
     wo = torch.where(flip[:, None], _flip_z(wo), wo)
     out = torch.zeros_like(wi[:, 2])
     for code, fn in _codes(_SMOOTH_PDF, families):
-        out = torch.where(mat.mtype == code, fn(mat.params, wi, wo), out)
+        out = torch.where(mtype == code, fn(params, wi, wo), out)
     return out
 
 
-def sample_bsdf_ex(mat: MatInfo, wi, u2, u1, families=None) -> BSDFSample:
-    wi, flip = _twosided_wi(mat.params, wi)
+def _dispatch_sample(mtype, params, wi, u2, u1, families):
+    """The leaf family samplers selected per lane (the two-sided flip is
+    the callers')."""
     wo, weight = torch.zeros_like(wi), torch.zeros_like(wi)
     pdf, eta = torch.zeros_like(wi[:, 2]), _ones(wi)
     is_delta = _falses(wi)
     for code, fn in _codes(_SAMPLERS, families):
-        s = fn(mat.params, wi, u2, u1)
-        sel = mat.mtype == code
+        s = fn(params, wi, u2, u1)
+        sel = mtype == code
         wo = torch.where(sel[:, None], s.wo, wo)
         weight = torch.where(sel[:, None], s.weight, weight)
         pdf = torch.where(sel, s.pdf, pdf)
         is_delta = torch.where(sel, s.is_delta, is_delta)
         eta = torch.where(sel, s.eta, eta)
-    wo = torch.where(flip[:, None], _flip_z(wo), wo)
     return BSDFSample(wo, weight, pdf, is_delta, eta)
+
+
+def sample_bsdf(mtype, params, wi, u2, u1, families=None) -> BSDFSample:
+    wi, flip = _twosided_wi(params, wi)
+    s = _dispatch_sample(mtype, params, wi, u2, u1, families)
+    return s._replace(wo=torch.where(flip[:, None], _flip_z(s.wo), s.wo))
+
+
+# ---------------------------------------------------------------------------
+# smooth coating (ref: src/bsdfs/coating.cpp): a dielectric coat over a
+# nested leaf child, whose directions bend into the coat (sinθ' = sinθ/η);
+# absorption e^{-σa·t·path}, both interface transmittances and the
+# dω'/dω Jacobian with the 1/η² radiance compression
+# ---------------------------------------------------------------------------
+
+def _coat_eta(p):
+    return torch.clamp(p[:, 0], min=1.0 + 1e-4)
+
+
+def _coat_refract_in(v, eta):
+    """Bend a direction into the coat: same azimuth and hemisphere."""
+    xy = v[:, 0:2] * (1.0 / eta)[:, None]
+    z2 = torch.clamp(1.0 - torch.sum(xy * xy, dim=-1), min=0.0)
+    z = torch.sqrt(z2) * torch.sign(v[:, 2])
+    return torch.cat([xy, z[:, None]], dim=-1)
+
+
+def _coat_absorption(p, wi_in, wo_in):
+    path = (1.0 / torch.clamp(torch.abs(wi_in[:, 2]), min=1e-4)
+            + 1.0 / torch.clamp(torch.abs(wo_in[:, 2]), min=1e-4))
+    return torch.exp(-p[:, 1:4] * path[:, None])
+
+
+def _coating_eval(mat: MatInfo, wi, wo, families):
+    """f·cosθo of the nested component under the coat; the delta coat
+    lobe appears only in sampling."""
+    p = mat.params
+    eta = _coat_eta(p)
+    fi = fresnel_dielectric(wi[:, 2], eta)[0]
+    fo = fresnel_dielectric(wo[:, 2], eta)[0]
+    wi_in = _coat_refract_in(wi, eta)
+    wo_in = _coat_refract_in(wo, eta)
+    f_n = eval_bsdf(mat.mtype_a, mat.params_a, wi_in, wo_in, families)
+    a = _coat_absorption(p, wi_in, wo_in)
+    jac = (torch.abs(wo[:, 2]) / torch.clamp(torch.abs(wo_in[:, 2]),
+                                             min=1e-6)) / (eta * eta)
+    return f_n * a * ((1.0 - fi) * (1.0 - fo) * jac)[:, None]
+
+
+def _coating_pdf(mat: MatInfo, wi, wo, families):
+    p = mat.params
+    eta = _coat_eta(p)
+    fi = fresnel_dielectric(wi[:, 2], eta)[0]
+    wi_in = _coat_refract_in(wi, eta)
+    wo_in = _coat_refract_in(wo, eta)
+    pdf_n = pdf_bsdf(mat.mtype_a, mat.params_a, wi_in, wo_in, families)
+    return (1.0 - fi) * pdf_n * torch.abs(wo[:, 2]) \
+        / torch.clamp((eta * eta) * torch.abs(wo_in[:, 2]), min=1e-9)
+
+
+def _coat_nested_sample(mat: MatInfo, wi, u2, u1, fi, families):
+    """The nested child sampled inside the coat with u1 rescaled past the
+    coat's pick probability fi, refracted back out (total internal
+    reflection: a dead sample). Returns (wo, weight, pdf with the (1 - fi)
+    pick and the Jacobian, ok, child delta)."""
+    p = mat.params
+    eta = _coat_eta(p)
+    u1_n = torch.clamp((u1 - fi) / torch.clamp(1.0 - fi, min=1e-6), 0.0,
+                       1.0 - 1e-6)
+    wi_in = _coat_refract_in(wi, eta)
+    s = _dispatch_sample(mat.mtype_a, mat.params_a, wi_in, u2, u1_n,
+                         families)
+    xy = s.wo[:, 0:2] * eta[:, None]
+    sin2 = torch.sum(xy * xy, dim=-1)
+    z = torch.sqrt(torch.clamp(1.0 - sin2, min=0.0)) * torch.sign(s.wo[:, 2])
+    wo_n = torch.cat([xy, z[:, None]], dim=-1)
+    fo = fresnel_dielectric(wo_n[:, 2], eta)[0]
+    a = _coat_absorption(p, wi_in, s.wo)
+    w_nested = s.weight * a * (1.0 - fo)[:, None]
+    pdf_nested = (1.0 - fi) * s.pdf * torch.abs(wo_n[:, 2]) \
+        / torch.clamp((eta * eta) * torch.abs(s.wo[:, 2]), min=1e-9)
+    ok_n = (sin2 < 1.0) & (s.pdf > 0)
+    return wo_n, w_nested, pdf_nested, ok_n, s.is_delta
+
+
+def _coating_sample(mat: MatInfo, wi, u2, u1, families) -> BSDFSample:
+    p = mat.params
+    fi = fresnel_dielectric(wi[:, 2], _coat_eta(p))[0]
+    pick_spec = u1 < fi
+    wo_n, w_nested, pdf_nested, ok_n, delta_n = _coat_nested_sample(
+        mat, wi, u2, u1, fi, families)
+    wo = torch.where(pick_spec[:, None], reflect(wi), wo_n)
+    weight = torch.where(pick_spec[:, None],
+                         p[:, 4:5] * torch.ones_like(w_nested),
+                         torch.where(ok_n[:, None], w_nested, 0.0))
+    pdf = torch.where(pick_spec, fi, torch.where(ok_n, pdf_nested, 0.0))
+    return BSDFSample(wo, weight, pdf, pick_spec | delta_n, _ones(wi))
+
+
+# ---------------------------------------------------------------------------
+# rough coating (ref: src/bsdfs/roughcoating.cpp): the smooth coat's nested
+# term plus a GGX/Beckmann coat reflection lobe (visible-normal sampled)
+# ---------------------------------------------------------------------------
+
+def _rough_coat_spec_eval(p, wi, wo):
+    """f·cosθo of the rough coat's reflection lobe (upper hemisphere)."""
+    alpha = mf.clamp_alpha(p[:, 9])
+    dist = p[:, 11]
+    h = normalize(wi + wo)
+    d = mf.eval_d(h, alpha, alpha, dist)
+    f = fresnel_dielectric(dot(wi, h), _coat_eta(p))[0]
+    g = mf.smith_g(wi, wo, h, alpha, alpha, dist)
+    ci = wi[:, 2]
+    val = p[:, 4] * f * d * g / torch.clamp(4.0 * torch.abs(ci), min=1e-7)
+    return torch.where((ci > 0) & (wo[:, 2] > 0), val, 0.0)
+
+
+def _rough_coat_spec_pdf(p, wi, wo):
+    alpha = mf.clamp_alpha(p[:, 9])
+    h = normalize(wi + wo)
+    pdf_h = mf.pdf_visible(wi, h, alpha, alpha, p[:, 11])
+    pdf = pdf_h / torch.clamp(4.0 * torch.abs(dot(wo, h)), min=1e-7)
+    return torch.where((wi[:, 2] > 0) & (wo[:, 2] > 0), pdf, 0.0)
+
+
+def _roughcoating_eval(mat: MatInfo, wi, wo, families):
+    spec = _rough_coat_spec_eval(mat.params, wi, wo)
+    return _coating_eval(mat, wi, wo, families) + spec[:, None]
+
+
+def _roughcoating_pdf(mat: MatInfo, wi, wo, families):
+    fi = fresnel_dielectric(wi[:, 2], _coat_eta(mat.params))[0]
+    return (fi * _rough_coat_spec_pdf(mat.params, wi, wo)
+            + _coating_pdf(mat, wi, wo, families))
+
+
+def _roughcoating_sample(mat: MatInfo, wi, u2, u1, families) -> BSDFSample:
+    p = mat.params
+    alpha = mf.clamp_alpha(p[:, 9])
+    fi = fresnel_dielectric(wi[:, 2], _coat_eta(p))[0]
+    pick_spec = u1 < fi
+    m = mf.sample_visible(wi, u2, alpha, alpha, p[:, 11])
+    wo_s = 2.0 * dot(wi, m)[:, None] * m - wi
+    wo_n, w_nested, pdf_nested, ok_n, delta_n = _coat_nested_sample(
+        mat, wi, u2, u1, fi, families)
+    wo = torch.where(pick_spec[:, None], wo_s, wo_n)
+    # smooth lanes: the combined eval/pdf of both lobes (MIS-correct)
+    f_all = _roughcoating_eval(mat, wi, wo, families)
+    pdf_all = _roughcoating_pdf(mat, wi, wo, families)
+    w_smooth = torch.where(pdf_all[:, None] > 1e-9,
+                           f_all / torch.clamp(pdf_all, min=1e-9)[:, None],
+                           0.0)
+    nested_delta = ~pick_spec & delta_n
+    weight = torch.where(nested_delta[:, None],
+                         torch.where(ok_n[:, None], w_nested, 0.0), w_smooth)
+    pdf = torch.where(nested_delta, torch.where(ok_n, pdf_nested, 0.0),
+                      pdf_all)
+    # a coat pick below the horizon is a dead sample
+    dead = pick_spec & (wo_s[:, 2] <= 0)
+    weight = torch.where(dead[:, None], 0.0, weight)
+    pdf = torch.where(dead, 0.0, pdf)
+    return BSDFSample(wo, weight, pdf, nested_delta, _ones(wi))
+
+
+# ---------------------------------------------------------------------------
+# MatInfo-aware entry points (leaf lanes cost exactly the leaf dispatch)
+# ---------------------------------------------------------------------------
+
+def _composite_view(mat: MatInfo, wi, wo=None):
+    """(wi, wo) under the top row's two-sided flip, and the flip."""
+    wi_t, flip = _twosided_wi(mat.params, wi)
+    if wo is not None:
+        wo = torch.where(flip[:, None], _flip_z(wo), wo)
+    return wi_t, wo, flip
+
+
+def eval_bsdf_ex(mat: MatInfo, wi, wo, families=None):
+    """f(wi, wo)·cosθo of the smooth component (zero for delta lobes);
+    a mixture's is the convex sum of its children's."""
+    if not _has_composite(families):
+        return eval_bsdf(mat.mtype, mat.params, wi, wo, families)
+    wi_t, wo_t, _ = _composite_view(mat, wi, wo)
+    f = eval_bsdf(mat.mtype_a, mat.params_a, wi_t, wo_t, families)
+    if families is None or S.MAT_MIXTURE in families:
+        f_b = eval_bsdf(mat.mtype_b, mat.params_b, wi_t, wo_t, families)
+        f = torch.where((mat.mtype == S.MAT_MIXTURE)[:, None],
+                        mat.w_a[:, None] * f
+                        + (1.0 - mat.w_a)[:, None] * f_b, f)
+    if families is None or S.MAT_COATING in families:
+        f = torch.where((mat.mtype == S.MAT_COATING)[:, None],
+                        _coating_eval(mat, wi_t, wo_t, families), f)
+    if _has_rough_coat(families):
+        f = torch.where((mat.mtype == S.MAT_ROUGH_COATING)[:, None],
+                        _roughcoating_eval(mat, wi_t, wo_t, families), f)
+    return f
+
+
+def pdf_bsdf_ex(mat: MatInfo, wi, wo, families=None):
+    if not _has_composite(families):
+        return pdf_bsdf(mat.mtype, mat.params, wi, wo, families)
+    wi_t, wo_t, _ = _composite_view(mat, wi, wo)
+    p = pdf_bsdf(mat.mtype_a, mat.params_a, wi_t, wo_t, families)
+    if families is None or S.MAT_MIXTURE in families:
+        p_b = pdf_bsdf(mat.mtype_b, mat.params_b, wi_t, wo_t, families)
+        p = torch.where(mat.mtype == S.MAT_MIXTURE,
+                        mat.w_a * p + (1.0 - mat.w_a) * p_b, p)
+    if families is None or S.MAT_COATING in families:
+        p = torch.where(mat.mtype == S.MAT_COATING,
+                        _coating_pdf(mat, wi_t, wo_t, families), p)
+    if _has_rough_coat(families):
+        p = torch.where(mat.mtype == S.MAT_ROUGH_COATING,
+                        _roughcoating_pdf(mat, wi_t, wo_t, families), p)
+    return p
+
+
+def _select(sel, a: BSDFSample, b: BSDFSample) -> BSDFSample:
+    """a on the lanes of sel, else b."""
+    return BSDFSample(*(torch.where(sel[:, None] if x.dim() == 2 else sel,
+                                    x, y) for x, y in zip(a, b)))
+
+
+def _mixture_sample(mat: MatInfo, wi, u2, u1, families) -> BSDFSample:
+    """Pick a child ∝ its weight with u1 (sample reuse, mixturebsdf.cpp),
+    sample it with u1 remapped into its own stream; weight a smooth
+    sample by the whole mixture's f/pdf (MIS-correct) and a delta one by
+    the picked child's weight."""
+    w_a = mat.w_a
+    pick_a = u1 < w_a
+    u1_a = torch.clamp(u1 / torch.clamp(w_a, min=1e-6), 0.0, 1.0 - 1e-6)
+    u1_b = torch.clamp((u1 - w_a) / torch.clamp(1.0 - w_a, min=1e-6), 0.0,
+                       1.0 - 1e-6)
+    sa = _dispatch_sample(mat.mtype_a, mat.params_a, wi, u2, u1_a, families)
+    sb = _dispatch_sample(mat.mtype_b, mat.params_b, wi, u2, u1_b, families)
+    sm = _select(pick_a, sa, sb)
+    f_mix = (w_a[:, None] * eval_bsdf(mat.mtype_a, mat.params_a, wi, sm.wo,
+                                      families)
+             + (1.0 - w_a)[:, None] * eval_bsdf(mat.mtype_b, mat.params_b,
+                                                wi, sm.wo, families))
+    pdf_mix = (w_a * pdf_bsdf(mat.mtype_a, mat.params_a, wi, sm.wo, families)
+               + (1.0 - w_a) * pdf_bsdf(mat.mtype_b, mat.params_b, wi, sm.wo,
+                                        families))
+    pdf_delta = torch.where(pick_a, w_a, 1.0 - w_a) * sm.pdf
+    wt_smooth = torch.where(pdf_mix[:, None] > 1e-12,
+                            f_mix / torch.clamp(pdf_mix, min=1e-12)[:, None],
+                            0.0)
+    return BSDFSample(sm.wo, torch.where(sm.is_delta[:, None], sm.weight,
+                                         wt_smooth),
+                      torch.where(sm.is_delta, pdf_delta, pdf_mix),
+                      sm.is_delta, sm.eta)
+
+
+def sample_bsdf_ex(mat: MatInfo, wi, u2, u1, families=None) -> BSDFSample:
+    if not _has_composite(families):
+        return sample_bsdf(mat.mtype, mat.params, wi, u2, u1, families)
+    wi_t, _, flip = _composite_view(mat, wi)
+    # leaf lanes: the dispatch on child A, which is the lane's own row
+    s = _dispatch_sample(mat.mtype_a, mat.params_a, wi_t, u2, u1, families)
+    if families is None or S.MAT_MIXTURE in families:
+        s = _select(mat.mtype == S.MAT_MIXTURE,
+                    _mixture_sample(mat, wi_t, u2, u1, families), s)
+    if families is None or S.MAT_COATING in families:
+        s = _select(mat.mtype == S.MAT_COATING,
+                    _coating_sample(mat, wi_t, u2, u1, families), s)
+    if _has_rough_coat(families):
+        s = _select(mat.mtype == S.MAT_ROUGH_COATING,
+                    _roughcoating_sample(mat, wi_t, u2, u1, families), s)
+    return s._replace(wo=torch.where(flip[:, None], _flip_z(s.wo), s.wo))

@@ -26,10 +26,10 @@ def _check_supported(a: dict):
     params = np.asarray(a["mat_params"])
     if np.any(params[:, [13, 14, 16]] != -1) or np.any(params[:, 17]):
         problems.append("textures or normal/bump maps")
-    if np.any(np.asarray(a["em_type"]) != S.EM_AREA):
-        problems.append("non-area emitters")
-    if int(np.asarray(a["env_id"])) >= 0 or bool(np.asarray(a["has_medium"])):
-        problems.append("environment emitters or media")
+    if np.any(np.asarray(a["em_type"]) == S.EM_ENVMAP):
+        problems.append("envmap emitters")
+    if bool(np.asarray(a["has_medium"])):
+        problems.append("media")
     if problems:
         raise NotImplementedError(f"scene uses features not ported: "
                                   f"{problems}")

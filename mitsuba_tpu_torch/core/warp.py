@@ -45,3 +45,14 @@ def square_to_uniform_triangle(u):
     """Barycentric warp (b0 = 1-sqrt(1-u0), b1 = u1*sqrt(1-u0))."""
     t = safe_sqrt(1.0 - u[..., 0])
     return torch.stack([1.0 - t, u[..., 1] * t], dim=-1)
+
+
+INV_FOUR_PI = float(1.0 / (4.0 * math.pi))
+
+
+def square_to_uniform_sphere(u):
+    """Area-preserving lat-long warp (warp.h:43)."""
+    z = 1.0 - 2.0 * u[..., 0]
+    r = safe_sqrt(1.0 - z * z)
+    phi = 2.0 * math.pi * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)

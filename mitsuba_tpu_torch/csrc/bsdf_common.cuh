@@ -2,9 +2,11 @@
 // dispatch (mitsuba_tpu/accel/megakernel.py _bsdf_eval_pdf :1744,
 // _bsdf_sample :1951 and their helpers _rd_terms :1578, _rp_terms :1637,
 // _leadr_terms :1691, _fresnel_diel_f :207, _powf :224, _fdr :230,
-// _ggx_d, _ggx_g1, _fresnel_cond) for the 14 leaf BSDF families. Shared by
-// the path megakernel (megakernel.cu) and the fused shade kernel
-// (shade.cu).
+// _ggx_d, _ggx_g1, _fresnel_cond) for the 14 leaf BSDF families, and its
+// composites (mat_eval, mat_sample: mixture, coating, rough coating over
+// leaf children, _bounce_rows :781-800, :1004-1083, :1135-1299). Shared
+// by the path megakernel (megakernel.cu, the composites in its kExt
+// instantiations only) and the fused shade kernel (shade.cu, leaves).
 //
 // A material is the row `m` of the megakernel's material table
 // (accel/megakernel.py N_MAT columns: the scene's mat_params, column 12
@@ -37,6 +39,8 @@ constexpr float kMatRoughPlastic = 6.f, kMatPhong = 7.f, kMatWard = 8.f;
 constexpr float kMatRoughDiffuse = 9.f, kMatNull = 10.f;
 constexpr float kMatThinDielectric = 11.f, kMatDifftrans = 12.f;
 constexpr float kMatAnisoRoughDiffuse = 19.f;
+constexpr float kMatMixture = 13.f, kMatCoating = 14.f;
+constexpr float kMatRoughCoating = 17.f;
 constexpr int kRtRow = 34;     // accel/megakernel.py RTROW
 constexpr int kRtKnots = 32;   // RT_KNOTS
 
@@ -819,6 +823,239 @@ __device__ __forceinline__ BsdfSample bsdf_sample(const float* m, float wix,
     s.eta = pick_r ? 1.f : eta_it;
   }
   return s;
+}
+
+// ---------------------------------------------------------------------------
+// The composites over leaf children (megakernel.py composite_eval_pdf,
+// composite_sample; the JAX megakernel's _bounce_rows :781-800,
+// :1004-1083, :1135-1299): mixture, blend and mask (one convex-sum code),
+// smooth coating and rough coating. `mats` is the material table and
+// `stride` its row length; a composite row names its children's rows in
+// columns 18 and 19 and a mixture its child-A weight in column 20. A lane
+// evaluates its children through one call site in a loop, so a bounce
+// inlines bsdf_eval_pdf once for its light and once for a mixture's or
+// rough coat's sampled direction, and bsdf_sample once.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ const float* child_row(const float* mats,
+                                                  int stride, const float* m,
+                                                  int slot) {
+  return mats + static_cast<int>(m[slot]) * stride;
+}
+
+// a direction bent into the coat: sinθ' = sinθ/η, same hemisphere
+__device__ __forceinline__ V3 coat_in(float vx, float vy, float vz,
+                                      float inv_ce) {
+  const float x = vx * inv_ce, y = vy * inv_ce;
+  return V3{x, y, sqrtf(clamp_min((1.f - x * x) - y * y, 0.f)) * sign_of(vz)};
+}
+
+struct Coat {
+  float eta, inv_eta, fi;   // η, 1/η and F(wi) of the coat
+  V3 ci;                    // wi bent into it
+};
+
+__device__ __forceinline__ Coat coat_setup(const float* m, float wix,
+                                           float wiy, float wiz) {
+  Coat c;
+  c.eta = clamp_min(m[0], F32(1.0 + 1e-4));
+  c.inv_eta = 1.f / c.eta;
+  c.fi = fresnel_diel_f(wiz, c.eta);
+  c.ci = coat_in(wix, wiy, wiz, c.inv_eta);
+  return c;
+}
+
+// f·cosθo and pdf of the rough coat's GGX reflection lobe (upper
+// hemisphere, visible-normal pdf), added to f and pdf as rc_spec_terms
+__device__ __forceinline__ void rc_spec_add(const float* m, const Coat& c,
+                                            float wix, float wiy, float wiz,
+                                            float wox, float woy, float woz,
+                                            float f[3], float& pdf) {
+  const float a = clamp_min(m[9], F32(1e-4));
+  float hx = wix + wox, hy = wiy + woy, hz = wiz + woz;
+  normalize3(hx, hy, hz);
+  const float d_h = ggx_d(hx, hy, hz, a);
+  const float wih = dot_xyz(wix, wiy, wiz, hx, hy, hz);
+  const float f_h = fresnel_diel_f(wih, c.eta);
+  const float g1i = ggx_g1(wix, wiy, wiz, hx, hy, hz, a);
+  const float g_h = g1i * ggx_g1(wox, woy, woz, hx, hy, hz, a);
+  const float upf = wiz > 0.f && woz > 0.f ? 1.f : 0.f;
+  const float sv = ((((m[4] * f_h) * d_h) * g_h)
+                    / clamp_min(4.f * fabsf(wiz), F32(1e-7))) * upf;
+  const float pdf_h = ((g1i * fabsf(wih)) * d_h)
+                      / clamp_min(fabsf(wiz), F32(1e-12));
+  const float woh = dot_xyz(wox, woy, woz, hx, hy, hz);
+  const float sp = (pdf_h / clamp_min(4.f * fabsf(woh), F32(1e-7))) * upf;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) f[ch] = f[ch] + sv;
+  pdf = c.fi * sp + pdf;
+}
+
+// f·cosθo (f[3]) and pdf toward wo of the lane's material m, composites
+// included (composite_eval_pdf; a leaf as bsdf_eval_pdf)
+__device__ __forceinline__ void mat_eval(const float* mats, int stride,
+                                         const float* m, float wix,
+                                         float wiy, float wiz, float wox,
+                                         float woy, float woz, float f[3],
+                                         float& pdf) {
+  const float mtype = m[12];
+  const bool mix = mtype == kMatMixture;
+  const bool rough = mtype == kMatRoughCoating;
+  const bool coat = mtype == kMatCoating || rough;
+  Coat c;
+  V3 co;
+  if (coat) {
+    c = coat_setup(m, wix, wiy, wiz);
+    co = coat_in(wox, woy, woz, c.inv_eta);
+  }
+  const float w = m[20];
+  f[0] = f[1] = f[2] = pdf = 0.f;
+#pragma unroll 1
+  for (int k = 0; k < (mix ? 2 : 1); ++k) {
+    const float* row = mix || coat ? child_row(mats, stride, m, 18 + k) : m;
+    float fk[3], pk;
+    if (coat)
+      bsdf_eval_pdf<true>(row, c.ci.x, c.ci.y, c.ci.z, co.x, co.y, co.z, fk,
+                          pk);
+    else
+      bsdf_eval_pdf<true>(row, wix, wiy, wiz, wox, woy, woz, fk, pk);
+    if (!mix) {
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) f[ch] = fk[ch];
+      pdf = pk;
+    } else if (k == 0) {   // w·f_A + (1 - w)·f_B
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) f[ch] = w * fk[ch];
+      pdf = w * pk;
+    } else {
+      const float one_w = 1.f - w;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) f[ch] = f[ch] + one_w * fk[ch];
+      pdf = pdf + one_w * pk;
+    }
+  }
+  if (!coat) return;
+  // the nested child through the interface (coat_terms)
+  const float fo = fresnel_diel_f(woz, c.eta);
+  const float path = 1.f / clamp_min(fabsf(c.ci.z), F32(1e-4))
+                     + 1.f / clamp_min(fabsf(co.z), F32(1e-4));
+  const float jac = (fabsf(woz) / clamp_min(fabsf(co.z), F32(1e-6)))
+                    * (c.inv_eta * c.inv_eta);
+  const float sc = ((1.f - c.fi) * (1.f - fo)) * jac;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch)
+    f[ch] = (f[ch] * expf(-m[1 + ch] * path)) * sc;
+  pdf = (((1.f - c.fi) * pdf) * fabsf(woz))
+        / clamp_min((c.eta * c.eta) * fabsf(co.z), F32(1e-9));
+  if (rough) rc_spec_add(m, c, wix, wiy, wiz, wox, woy, woz, f, pdf);
+}
+
+// One sample of the lane's material m, composites included
+// (composite_sample; a leaf as bsdf_sample)
+__device__ __forceinline__ BsdfSample mat_sample(const float* mats,
+                                                 int stride, const float* m,
+                                                 float wix, float wiy,
+                                                 float wiz, float u0,
+                                                 float u1, float uc) {
+  const float mtype = m[12];
+  const bool mix = mtype == kMatMixture;
+  const bool rough = mtype == kMatRoughCoating;
+  const bool coat = mtype == kMatCoating || rough;
+  const float one_m = F32(1.0 - 1e-6);
+  // the row, incident direction and lobe number the leaf sampler gets
+  const float* row = m;
+  V3 swi{wix, wiy, wiz};
+  float suc = uc;
+  const float w = m[20];
+  bool pick = false;   // mixture: child A; coat: its reflection lobe
+  Coat c;
+  if (mix) {
+    pick = uc < w;
+    row = child_row(mats, stride, m, pick ? 18 : 19);
+    suc = pick ? clamp_max(clamp_min(uc / clamp_min(w, F32(1e-6)), 0.f), one_m)
+               : clamp_max(clamp_min((uc - w) / clamp_min(1.f - w, F32(1e-6)),
+                                     0.f), one_m);
+  } else if (coat) {
+    c = coat_setup(m, wix, wiy, wiz);
+    pick = uc < c.fi;
+    row = child_row(mats, stride, m, 18);
+    swi = c.ci;
+    suc = clamp_max(clamp_min((uc - c.fi) / clamp_min(1.f - c.fi, F32(1e-6)),
+                              0.f), one_m);
+  }
+  BsdfSample s{{0.f, 0.f, 1.f}, {0.f, 0.f, 0.f}, 0.f, 1.f, false};
+  if (!(coat && pick))
+    s = bsdf_sample<true>(row, swi.x, swi.y, swi.z, u0, u1, suc);
+  if (!mix && !coat) return s;
+  if (mix) {
+    // a delta child's weight, else the whole mixture's f/pdf
+    if (s.delta) {
+      s.pdf = (pick ? w : 1.f - w) * s.pdf;
+    } else {
+      float fm[3], pm;
+      mat_eval(mats, stride, m, wix, wiy, wiz, s.wo[0], s.wo[1], s.wo[2], fm,
+               pm);
+      const float inv_pm = pm > F32(1e-12) ? 1.f / clamp_min(pm, F32(1e-12))
+                                           : 0.f;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) s.w[ch] = fm[ch] * inv_pm;
+      s.pdf = pm;
+    }
+    return s;
+  }
+  // the child refracted back out (total internal reflection: dead)
+  float o2[3] = {0.f, 0.f, 0.f}, wn[3] = {0.f, 0.f, 0.f};
+  float pdf_no = 0.f, okf = 0.f;
+  if (!pick) {
+    o2[0] = s.wo[0] * c.eta;
+    o2[1] = s.wo[1] * c.eta;
+    const float sin2 = o2[0] * o2[0] + o2[1] * o2[1];
+    o2[2] = sqrtf(clamp_min(1.f - sin2, 0.f)) * sign_of(s.wo[2]);
+    const float t_out = 1.f - fresnel_diel_f(o2[2], c.eta);
+    const float spath = 1.f / clamp_min(fabsf(c.ci.z), F32(1e-4))
+                        + 1.f / clamp_min(fabsf(s.wo[2]), F32(1e-4));
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+      wn[ch] = (s.w[ch] * expf(-m[1 + ch] * spath)) * t_out;
+    pdf_no = (((1.f - c.fi) * s.pdf) * fabsf(o2[2]))
+             / clamp_min((c.eta * c.eta) * fabsf(s.wo[2]), F32(1e-9));
+    okf = !(sin2 >= 1.f) && s.pdf > 0.f ? 1.f : 0.f;
+  }
+  BsdfSample out{{o2[0], o2[1], o2[2]}, {okf * wn[0], okf * wn[1], okf * wn[2]},
+                 okf * pdf_no, 1.f, s.delta};
+  if (!rough) {
+    if (pick) {   // the delta mirror of the coat
+      out.wo[0] = -wix;
+      out.wo[1] = -wiy;
+      out.wo[2] = wiz;
+      out.w[0] = out.w[1] = out.w[2] = m[4];
+      out.pdf = c.fi;
+      out.delta = true;
+    }
+    return out;
+  }
+  // rough coat: a delta child keeps its weight; else the whole BSDF's
+  // f/pdf at the GGX lobe's or the child's direction
+  if (out.delta) return out;
+  bool live = true;
+  if (pick) {
+    float mx, my, mz;
+    vndf(clamp_min(m[9], F32(1e-4)), wix, wiy, wiz, u0, u1, mx, my, mz);
+    const float wim = dot_xyz(wix, wiy, wiz, mx, my, mz);
+    out.wo[0] = (2.f * wim) * mx - wix;
+    out.wo[1] = (2.f * wim) * my - wiy;
+    out.wo[2] = (2.f * wim) * mz - wiz;
+    live = !(out.wo[2] <= 0.f);
+  }
+  float fa[3], pa;
+  mat_eval(mats, stride, m, wix, wiy, wiz, out.wo[0], out.wo[1], out.wo[2],
+           fa, pa);
+  const float ipa = pa > F32(1e-9) ? 1.f / clamp_min(pa, F32(1e-9)) : 0.f;
+  const float lf = live ? 1.f : 0.f;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) out.w[ch] = (fa[ch] * ipa) * lf;
+  out.pdf = pa * lf;
+  return out;
 }
 
 }  // namespace mitsuba_bsdf

@@ -7,10 +7,15 @@
 // make_bounce_kernel (:1395, launched by run_bounce :1511),
 // make_path_kernel (:1423, run_path :1552) and make_persistent_kernel
 // (:2478, run_persistent :2661), whose shared body is _bounce_rows
-// (:606-1384), for surface scenes: pinhole camera, flat or smooth shading
-// normals, the 14 leaf BSDF families of bsdf_common.cuh with the
-// two-sided adapter, and area emitters, without composites, medium or
-// textures.
+// (:606-1384), for surface scenes: pinhole or thin-lens camera, flat or
+// smooth shading normals, the 14 leaf BSDF families of bsdf_common.cuh
+// with the two-sided adapter and its composites over leaf children, area,
+// point, spot and directional emitters and the constant environment,
+// without medium or textures. Each kernel is a template on kExt: the
+// instantiation without it has the area emitters, leaf families and
+// pinhole only, so scenes that need no more run the code (and the
+// registers) they ran before; the launch picks kExt from the tables
+// (MegaTables.ext) or the camera's aperture.
 //
 // Design: one thread per lane. The path state lives in registers for the
 // whole launch; scene tables (per-triangle attributes, materials, emitter
@@ -85,6 +90,11 @@ constexpr int kEmMeta = 16;   // emitter row
 constexpr uint32_t kSensorDims = 4, kDimsPerBounce = 8;
 constexpr uint32_t kDimNeeSel = 0, kDimNeePos = 1, kDimBsdfU2 = 2;
 constexpr uint32_t kDimBsdfU1 = 3, kDimRR = 4, kDimPixel = 0;
+constexpr uint32_t kDimAperture = 1;
+// emitter type codes (scene/scene.py)
+constexpr float kEmArea = 0.f, kEmPoint = 1.f, kEmConstant = 2.f;
+constexpr float kEmDirectional = 4.f, kEmSpot = 5.f;
+constexpr float kEnvDist = 1e30f;    // emitter.py ENV_DIST
 
 struct Tables {
   const float4* woop;     // [C, 3*64] Woop rows (trace_common.cuh)
@@ -97,12 +107,14 @@ struct Tables {
   const float* em_meta;   // [E_pad, 16]
   const float* em_cdf;    // [E+1]
   int n_em;
+  int env;                // the constant environment's emitter row, or -1
 };
 
 struct Camera {           // megakernel.py camera_consts
   float r[9];             // rotation rows, camera -> world
   float pos[3];
   float tan_half, aspect, width, height;
+  float aperture, focus;  // thin lens (aperture 0: pinhole)
 };
 
 struct State {
@@ -110,15 +122,24 @@ struct State {
   float active, prev_pdf, prev_delta, eta;
 };
 
-// emitter/emitter.py sample_direct (area emitters)
+// emitter/emitter.py sample_direct: area emitters, and under kExt the
+// point, spot, directional and constant ones
 struct DirectSample {
   V3 d, value;
   float dist, pdf;
+  bool delta;             // point, spot or directional: MIS weight 1
 };
 
+// A delta emitter's value, radiance / pmf, zero where the pmf is not > 0
+__device__ __forceinline__ V3 delta_value(V3 rad, float pmf) {
+  const float p = clamp_min(pmf, F32(1e-12));
+  return pmf > 0.f ? V3{rad.x / p, rad.y / p, rad.z / p} : V3{0.f, 0.f, 0.f};
+}
+
+template <bool kExt>
 __device__ __forceinline__ DirectSample sample_direct(const Tables& T, V3 p,
                                                       float u_sel, float2 u2) {
-  DirectSample ds{V3{0.f, 0.f, 1.f}, V3{0.f, 0.f, 0.f}, 0.f, 0.f};
+  DirectSample ds{V3{0.f, 0.f, 1.f}, V3{0.f, 0.f, 0.f}, 0.f, 0.f, false};
   if (T.n_em == 0) return ds;
   // emitter pick with sample reuse: searchsorted(cdf, u, right=True) - 1
   int cnt = 0;
@@ -130,6 +151,47 @@ __device__ __forceinline__ DirectSample sample_direct(const Tables& T, V3 p,
   const float one_m = F32(1.0 - 1e-7);
   const float u_re = clamp_max(
       clamp_min((u_sel - lo) / clamp_min(pmf, F32(1e-20)), 0.f), one_m);
+  if (kExt) {
+    const float type = __ldg(meta + 2);
+    const V3 rad = row3(meta + 3), pos = row3(meta + 8);
+    if (type == kEmPoint || type == kEmSpot) {
+      const V3 tp{pos.x - p.x, pos.y - p.y, pos.z - p.z};
+      const float pd2 = clamp_min(dot3(tp, tp), F32(1e-12));
+      ds.dist = sqrtf(pd2);
+      ds.d = V3{tp.x / ds.dist, tp.y / ds.dist, tp.z / ds.dist};
+      V3 val{rad.x / pd2, rad.y / pd2, rad.z / pd2};
+      if (type == kEmSpot) {   // linear falloff from beam width to cutoff
+        const float cos_cut = __ldg(meta + 14);
+        const float cos_ang = dot3(row3(meta + 11),
+                                   V3{-ds.d.x, -ds.d.y, -ds.d.z});
+        const float fall = clamp_max(clamp_min(
+            (cos_ang - cos_cut)
+            / clamp_min(__ldg(meta + 15) - cos_cut, F32(1e-6)), 0.f), 1.f);
+        val = V3{val.x * fall, val.y * fall, val.z * fall};
+      }
+      ds.value = delta_value(val, pmf);
+      ds.pdf = pmf;
+      ds.delta = true;
+      return ds;
+    }
+    if (type == kEmDirectional) {
+      ds.d = V3{-pos.x, -pos.y, -pos.z};
+      ds.dist = kEnvDist;
+      ds.value = delta_value(rad, pmf);
+      ds.pdf = pmf;
+      ds.delta = true;
+      return ds;
+    }
+    if (type == kEmConstant) {   // the uniform sphere
+      ds.d = uniform_sphere(u2.x, u2.y);
+      ds.dist = kEnvDist;
+      ds.pdf = F32(1.0 / (4.0 * kPi)) * pmf;
+      if (ds.pdf > 0.f)
+        ds.value = V3{safe_div(rad.x, ds.pdf), safe_div(rad.y, ds.pdf),
+                      safe_div(rad.z, ds.pdf)};
+      return ds;
+    }
+  }
   // triangle within it from the globalized cdf (values in (e, e+1])
   const float key = static_cast<float>(e) + clamp_max(clamp_min(u_re, 0.f),
                                                       one_m);
@@ -160,6 +222,8 @@ __device__ __forceinline__ DirectSample sample_direct(const Tables& T, V3 p,
 }
 
 // What a bounce carries from its closest hit across the shadow trace.
+// (Under kExt M may be a composite, whose children the helpers of
+// bsdf_common.cuh read from the table.)
 struct Vertex {
   V3 p, ng, ns, fs, ft, wi;
   const float* M;           // the hit's material row
@@ -174,6 +238,7 @@ struct Vertex {
 // The bounce up to its shadow ray, for an active lane: the hit record
 // (accel/dense.py fill_intersection), the emitter hit, the NEE sample and
 // the BSDF toward it.
+template <bool kExt>
 __device__ __forceinline__ Vertex bounce_front(const Tables& T, State& s,
                                                const Hit& h, uint32_t seed,
                                                uint32_t pixel, uint32_t samp,
@@ -198,6 +263,17 @@ __device__ __forceinline__ Vertex bounce_front(const Tables& T, State& s,
   const float t_safe = v.hit ? h.t : 1.f;
   v.p = V3{s.o.x + t_safe * s.d.x, s.o.y + t_safe * s.d.y,
            s.o.z + t_safe * s.d.z};
+
+  // ---- an escaped ray sees the constant environment (eval_env,
+  // pdf_direct_env) ------------------------------------------------------
+  if (kExt && !v.hit && T.env >= 0) {
+    const float* env = T.em_meta + T.env * kEmMeta;
+    const float pdf_env = F32(1.0 / (4.0 * kPi)) * __ldg(env + 1);
+    const float w = s.prev_delta > 0.5f ? 1.f : mis_power(s.prev_pdf, pdf_env);
+    const V3 le = row3(env + 3);
+    s.L = V3{s.L.x + (s.tp.x * le.x) * w, s.L.y + (s.tp.y * le.y) * w,
+             s.L.z + (s.tp.z * le.z) * w};
+  }
 
   // ---- emitter hit on a surface (eval_area, pdf_direct_area) ----------
   if (v.hit) {
@@ -228,11 +304,15 @@ __device__ __forceinline__ Vertex bounce_front(const Tables& T, State& s,
   const bool nee_allowed = v.hit && depth + 1 <= max_depth + 1;
   const float u_sel = rng2(seed, pixel, dim + kDimNeeSel, samp).x;
   const float2 u_pos = rng2(seed, pixel, dim + kDimNeePos, samp);
-  v.ds = sample_direct(T, v.p, u_sel, u_pos);
+  v.ds = sample_direct<kExt>(T, v.p, u_sel, u_pos);
   v.shadow = nee_allowed && v.ds.pdf > 0.f;
   const V3 wo = to_local(v.fs, v.ft, v.ns, v.ds.d);
-  bsdf_eval_pdf<true>(v.M, v.wi.x, v.wi.y, v.wiz, wo.x, wo.y,
-                      wo.z * v.fsign, v.f, v.pdf_fwd);
+  if (kExt)
+    mitsuba_bsdf::mat_eval(T.mat, kMat, v.M, v.wi.x, v.wi.y, v.wiz, wo.x,
+                           wo.y, wo.z * v.fsign, v.f, v.pdf_fwd);
+  else
+    bsdf_eval_pdf<true>(v.M, v.wi.x, v.wi.y, v.wiz, wo.x, wo.y,
+                        wo.z * v.fsign, v.f, v.pdf_fwd);
   v.contributes = v.shadow && (v.f[0] > 0.f || v.f[1] > 0.f || v.f[2] > 0.f);
   // shadow ray over [eps, dist * (1 - ShadowEpsilon)] (scene.cpp:846)
   v.so = v.contributes ? offset_ray_origin(v.p, v.ng, v.ds.d) : v.p;
@@ -240,8 +320,11 @@ __device__ __forceinline__ Vertex bounce_front(const Tables& T, State& s,
 }
 
 // The bounce after its shadow ray, for an active lane: NEE's radiance
-// unless occluded, BSDF sampling into the next ray, Russian roulette.
-__device__ __forceinline__ void bounce_back(const Vertex& v, bool occluded,
+// unless occluded (a delta emitter's with MIS weight 1), BSDF sampling
+// into the next ray, Russian roulette.
+template <bool kExt>
+__device__ __forceinline__ void bounce_back(const Tables& T, const Vertex& v,
+                                            bool occluded,
                                             State& s, uint32_t seed,
                                             uint32_t pixel, uint32_t samp,
                                             int bounce, int max_depth,
@@ -250,7 +333,8 @@ __device__ __forceinline__ void bounce_back(const Vertex& v, bool occluded,
                        * kDimsPerBounce;
   const int depth = bounce + 2;
   if (v.contributes && !occluded) {
-    const float w = mis_power(v.ds.pdf, v.pdf_fwd);
+    const float w = kExt && v.ds.delta ? 1.f
+                                       : mis_power(v.ds.pdf, v.pdf_fwd);
     s.L = V3{s.L.x + ((s.tp.x * v.ds.value.x) * v.f[0]) * w,
              s.L.y + ((s.tp.y * v.ds.value.y) * v.f[1]) * w,
              s.L.z + ((s.tp.z * v.ds.value.z) * v.f[2]) * w};
@@ -259,8 +343,10 @@ __device__ __forceinline__ void bounce_back(const Vertex& v, bool occluded,
   // ---- BSDF sampling → next ray ------------------------------------------
   const float2 ub = rng2(seed, pixel, dim + kDimBsdfU2, samp);
   const float uc = rng2(seed, pixel, dim + kDimBsdfU1, samp).x;
-  const BsdfSample bs = bsdf_sample<true>(v.M, v.wi.x, v.wi.y, v.wiz, ub.x,
-                                          ub.y, uc);
+  const BsdfSample bs =
+      kExt ? mitsuba_bsdf::mat_sample(T.mat, kMat, v.M, v.wi.x, v.wi.y, v.wiz,
+                                      ub.x, ub.y, uc)
+           : bsdf_sample<true>(v.M, v.wi.x, v.wi.y, v.wiz, ub.x, ub.y, uc);
   const V3 wn{bs.wo[0], bs.wo[1], bs.wo[2] * v.fsign};   // un-flip
   const V3 fs = v.fs, ft = v.ft, ns = v.ns;
   const V3 d_next{(fs.x * wn.x + ft.x * wn.y) + ns.x * wn.z,
@@ -295,8 +381,10 @@ __device__ __forceinline__ void bounce_back(const Vertex& v, bool occluded,
 // closest hit for the active lanes, the shadow ray for the lanes whose
 // NEE contributes. A lane inactive on entry is left unchanged. traced:
 // this lane traced a closest-hit ray; shadow: it attempted a shadow ray.
-// kCoop: mitsuba_walk::coop_walk, which the launch picks.
-template <bool kCoop>
+// kCoop: mitsuba_walk::coop_walk, which the launch picks; kExt: the
+// scene has non-area lights or composites (or the camera a thin lens),
+// MegaTables.ext, which the launch picks too.
+template <bool kCoop, bool kExt>
 __device__ __forceinline__ void path_bounce(const Tables& T, State& s,
                                             uint32_t seed, uint32_t pixel,
                                             uint32_t samp, int bounce,
@@ -307,13 +395,15 @@ __device__ __forceinline__ void path_bounce(const Tables& T, State& s,
       T.woop, T.aabb, T.tris, active,
       Ray{s.o.x, s.o.y, s.o.z, s.d.x, s.d.y, s.d.z, ray_mint(s.o), kMiss});
   Vertex v{};
-  if (active) v = bounce_front(T, s, h, seed, pixel, samp, bounce, max_depth);
+  if (active)
+    v = bounce_front<kExt>(T, s, h, seed, pixel, samp, bounce, max_depth);
   const bool occluded = trace_ray_warp<true, kCoop>(
       T.woop, T.aabb, T.tris, v.contributes,
       Ray{v.so.x, v.so.y, v.so.z, v.ds.d.x, v.ds.d.y, v.ds.d.z,
           ray_mint(v.so), v.ds.dist * F32(1.0 - 1e-3)}).found;
-  if (active) bounce_back(v, occluded, s, seed, pixel, samp, bounce,
-                          max_depth, rr_depth);
+  if (active)
+    bounce_back<kExt>(T, v, occluded, s, seed, pixel, samp, bounce,
+                      max_depth, rr_depth);
   traced = active;
   shadow = v.shadow;
 }
@@ -355,9 +445,11 @@ __device__ __forceinline__ void store_state(float* __restrict__ st, int n,
 }
 
 // A fresh camera path for `pixel` at sample `samp`: render.py's jitter and
-// sensor.py's pinhole PerspectiveCamera.sample_ray, op for op. PyTorch's
-// CUDA division by a Python scalar multiplies by the scalar's reciprocal,
-// so the pixel position is scaled by 1/width, not divided by width.
+// sensor.py's PerspectiveCamera.sample_ray, pinhole or (under kExt, with
+// an aperture) thin lens, op for op. PyTorch's CUDA division by a Python
+// scalar multiplies by the scalar's reciprocal, so the pixel position is
+// scaled by 1/width, not divided by width.
+template <bool kExt>
 __device__ __forceinline__ void camera_path(const Camera& cam, uint32_t seed,
                                             uint32_t pixel, uint32_t samp,
                                             State& s) {
@@ -371,8 +463,25 @@ __device__ __forceinline__ void camera_path(const Camera& cam, uint32_t seed,
   V3 d{(lx * cam.r[0] + ly * cam.r[1]) + cam.r[2],
        (lx * cam.r[3] + ly * cam.r[4]) + cam.r[5],
        (lx * cam.r[6] + ly * cam.r[7]) + cam.r[8]};
-  const float inv = rsqrtf(clamp_min(dot3(d, d), F32(1e-30)));
   s.o = V3{cam.pos[0], cam.pos[1], cam.pos[2]};
+  if (kExt && cam.aperture > 0.f) {
+    // a concentric-disk point of the aperture, aimed through the focus
+    // plane: o = R·(lens, 0) + pos, d = R·(focus·(lx, ly, 1) - (lens, 0))
+    const float2 ap = rng2(seed, pixel, kDimAperture, samp);
+    float ex, ey;
+    concentric_disk(ap.x, ap.y, ex, ey);
+    ex = ex * cam.aperture;
+    ey = ey * cam.aperture;
+    const float f = cam.focus;
+    const float dx = lx * f - ex, dy = ly * f - ey, dz = 1.f * f - 0.f;
+    d = V3{(dx * cam.r[0] + dy * cam.r[1]) + dz * cam.r[2],
+           (dx * cam.r[3] + dy * cam.r[4]) + dz * cam.r[5],
+           (dx * cam.r[6] + dy * cam.r[7]) + dz * cam.r[8]};
+    s.o = V3{((ex * cam.r[0] + ey * cam.r[1]) + 0.f * cam.r[2]) + cam.pos[0],
+             ((ex * cam.r[3] + ey * cam.r[4]) + 0.f * cam.r[5]) + cam.pos[1],
+             ((ex * cam.r[6] + ey * cam.r[7]) + 0.f * cam.r[8]) + cam.pos[2]};
+  }
+  const float inv = rsqrtf(clamp_min(dot3(d, d), F32(1e-30)));
   s.d = V3{d.x * inv, d.y * inv, d.z * inv};
   s.tp = V3{1.f, 1.f, 1.f};
   s.L = V3{0.f, 0.f, 0.f};
@@ -384,9 +493,14 @@ __device__ __forceinline__ void camera_path(const Camera& cam, uint32_t seed,
 // launch bounds ask for four blocks an SM: at most 128 registers a thread,
 // so all 512 blocks of a 256² launch are resident at once (132 SMs), and
 // ptxas does not trade spills for a higher occupancy (it spilled in
-// mega_bounce's SIMT-walk build when the bound named threads alone).
-template <bool kCoop>
-__global__ void __launch_bounds__(128, 4)
+// mega_bounce's SIMT-walk build when the bound named threads alone). The
+// kExt instantiations, whose composite BSDFs hold a second material row
+// and a coat's state across a child's eval or sample, ask for two: at
+// most 255 registers, so they do not spill either.
+#define MEGA_BOUNDS __launch_bounds__(128, kExt ? 2 : 4)
+
+template <bool kCoop, bool kExt>
+__global__ void MEGA_BOUNDS
 mega_bounce(Tables T, const float* __restrict__ in, float* __restrict__ out,
             const int* __restrict__ pixel, const int* __restrict__ samp,
             int n, uint32_t seed, int bounce, int max_depth, int rr_depth) {
@@ -395,18 +509,18 @@ mega_bounce(Tables T, const float* __restrict__ in, float* __restrict__ out,
   State s{};
   if (lane_ok) s = load_state(in, n, i);
   bool traced, shadow;
-  path_bounce<kCoop>(T, s, seed,
-                     lane_ok ? static_cast<uint32_t>(pixel[i]) : 0u,
-                     lane_ok ? static_cast<uint32_t>(samp[i]) : 0u, bounce,
-                     max_depth, rr_depth, traced, shadow);
+  path_bounce<kCoop, kExt>(T, s, seed,
+                           lane_ok ? static_cast<uint32_t>(pixel[i]) : 0u,
+                           lane_ok ? static_cast<uint32_t>(samp[i]) : 0u,
+                           bounce, max_depth, rr_depth, traced, shadow);
   if (!lane_ok) return;
   store_state(out, n, i, s);
   out[kState * n + i] = traced ? 1.f : 0.f;
   out[(kState + 1) * n + i] = shadow ? 1.f : 0.f;
 }
 
-template <bool kCoop>
-__global__ void __launch_bounds__(128, 4)
+template <bool kCoop, bool kExt>
+__global__ void MEGA_BOUNDS
 mega_path(Tables T, const float* __restrict__ in, float* __restrict__ out,
           const int* __restrict__ pixel, const int* __restrict__ samp, int n,
           uint32_t seed, int n_bounces, int max_depth, int rr_depth) {
@@ -422,8 +536,8 @@ mega_path(Tables T, const float* __restrict__ in, float* __restrict__ out,
   for (int b = 0; __any_sync(mitsuba_walk::kFullMask,
                              b < n_bounces && s.active > 0.5f); ++b) {
     bool traced, shadow;
-    path_bounce<kCoop>(T, s, seed, px, sp, b, max_depth, rr_depth, traced,
-                       shadow);
+    path_bounce<kCoop, kExt>(T, s, seed, px, sp, b, max_depth, rr_depth,
+                             traced, shadow);
     n_traced += traced;
     n_shadow += shadow;
   }
@@ -433,8 +547,8 @@ mega_path(Tables T, const float* __restrict__ in, float* __restrict__ out,
   out[(kState + 1) * n + i] = static_cast<float>(n_shadow);
 }
 
-template <bool kCoop>
-__global__ void __launch_bounds__(128, 4)
+template <bool kCoop, bool kExt>
+__global__ void MEGA_BOUNDS
 mega_persistent(Tables T, const float* __restrict__ in,
                 float* __restrict__ out, const int* __restrict__ pixel,
                 const int* __restrict__ samp0, int n, uint32_t seed, int spp,
@@ -464,8 +578,9 @@ mega_persistent(Tables T, const float* __restrict__ in,
                               it < iter_cap && s.active > 0.5f); ++it) {
     const bool running = s.active > 0.5f;
     bool traced, shadow;
-    path_bounce<kCoop>(T, s, seed, px, static_cast<uint32_t>(s0 + done),
-                       bounce, max_depth, rr_depth, traced, shadow);
+    path_bounce<kCoop, kExt>(T, s, seed, px,
+                             static_cast<uint32_t>(s0 + done), bounce,
+                             max_depth, rr_depth, traced, shadow);
     if (!running) continue;
     iters += 1.f;
     n_traced += traced ? 1.f : 0.f;
@@ -475,7 +590,7 @@ mega_persistent(Tables T, const float* __restrict__ in,
     // the path died: bank its radiance, count it, start the next sample
     lsum = V3{lsum.x + s.L.x, lsum.y + s.L.y, lsum.z + s.L.z};
     if (++done < spp) {
-      camera_path(cam, seed, px, static_cast<uint32_t>(s0 + done), s);
+      camera_path<kExt>(cam, seed, px, static_cast<uint32_t>(s0 + done), s);
       bounce = 0;
     }
   }
@@ -495,7 +610,7 @@ mega_persistent(Tables T, const float* __restrict__ in,
 Tables make_tables(const void* woop, const void* aabb, int n_clusters,
                    int n_tris, const void* attr, const void* mat,
                    const void* em_rows, int et_real, const void* em_meta,
-                   const void* em_cdf, int n_em) {
+                   const void* em_cdf, int n_em, int env) {
   return Tables{static_cast<const float4*>(woop),
                 static_cast<const float*>(aabb),
                 mitsuba_walk::walk_tris(n_tris, n_clusters),
@@ -503,7 +618,7 @@ Tables make_tables(const void* woop, const void* aabb, int n_clusters,
                 static_cast<const float*>(mat),
                 static_cast<const float*>(em_rows), et_real,
                 static_cast<const float*>(em_meta),
-                static_cast<const float*>(em_cdf), n_em};
+                static_cast<const float*>(em_cdf), n_em, env};
 }
 
 constexpr int kThreads = 128;
@@ -511,19 +626,23 @@ constexpr int kThreads = 128;
 }  // namespace
 
 // C entry points (ctypes, accel/megakernel.py). Pointers are device
-// pointers except `cam`, a host array of 16 floats; n_tris is the count
-// of real triangles (the table's padding follows them); each launches on
+// pointers except `cam`, a host array of 18 floats; n_tris is the count
+// of real triangles (the table's padding follows them); env is the
+// constant environment's emitter row (-1: none); ext picks the kExt
+// instantiations (MegaTables.ext, or a thin lens); each launches on
 // `stream` and returns the cudaError_t of the launch.
 #define MEGA_TABLE_PARAMS                                                     \
   const void *woop, const void *aabb, int n_clusters, int n_tris,             \
       const void *attr, const void *mat, const void *em_rows, int et_real,    \
-      const void *em_meta, const void *em_cdf, int n_em
+      const void *em_meta, const void *em_cdf, int n_em, int env, int ext
 #define MEGA_TABLES                                                          \
   make_tables(woop, aabb, n_clusters, n_tris, attr, mat, em_rows, et_real,   \
-              em_meta, em_cdf, n_em)
-// the instantiation of `kernel` for the walk coop_walk picks
+              em_meta, em_cdf, n_em, env)
+// the instantiation of `kernel` for the walk coop_walk picks and ext
 #define MEGA_WALK(kernel, tables)                                            \
-  (mitsuba_walk::coop_walk((tables).tris) ? kernel<true> : kernel<false>)
+  (mitsuba_walk::coop_walk((tables).tris)                                    \
+       ? (ext ? kernel<true, true> : kernel<true, false>)                    \
+       : (ext ? kernel<false, true> : kernel<false, false>))
 
 extern "C" int mitsuba_mega_bounce(MEGA_TABLE_PARAMS, const void* state_in,
                                    void* state_out, const void* pixel,
@@ -574,6 +693,8 @@ extern "C" int mitsuba_mega_persistent(MEGA_TABLE_PARAMS,
   c.aspect = f[13];
   c.width = f[14];
   c.height = f[15];
+  c.aperture = f[16];
+  c.focus = f[17];
   const Tables T = MEGA_TABLES;
   const auto kernel = MEGA_WALK(mega_persistent, T);
   kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,

@@ -116,8 +116,9 @@ __device__ __forceinline__ V3 to_local(V3 s, V3 t, V3 n, V3 v) {
   return V3{dot3(v, s), dot3(v, t), dot3(v, n)};
 }
 
-// core/warp.py square_to_cosine_hemisphere (concentric disk + lift)
-__device__ __forceinline__ V3 cosine_hemisphere(float u0, float u1) {
+// core/warp.py square_to_uniform_disk_concentric (Shirley-Chiu)
+__device__ __forceinline__ void concentric_disk(float u0, float u1, float& px,
+                                                float& py) {
   const float ox = 2.f * u0 - 1.f, oy = 2.f * u1 - 1.f;
   const bool is_zero = ox == 0.f && oy == 0.f;
   const bool use_x = fabsf(ox) > fabsf(oy);
@@ -128,8 +129,23 @@ __device__ __forceinline__ V3 cosine_hemisphere(float u0, float u1) {
   const float phi = use_x ? ratio * F32(kPi / 4.0)
                           : F32(kPi / 2.0) - ratio * F32(kPi / 4.0);
   r = is_zero ? 0.f : r;
-  const float px = r * cosf(phi), py = r * sinf(phi);
+  px = r * cosf(phi);
+  py = r * sinf(phi);
+}
+
+// core/warp.py square_to_cosine_hemisphere (concentric disk + lift)
+__device__ __forceinline__ V3 cosine_hemisphere(float u0, float u1) {
+  float px, py;
+  concentric_disk(u0, u1, px, py);
   return V3{px, py, sqrtf(clamp_min((1.f - px * px) - py * py, 0.f))};
+}
+
+// core/warp.py square_to_uniform_sphere (lat-long, warp.h:43)
+__device__ __forceinline__ V3 uniform_sphere(float u0, float u1) {
+  const float z = 1.f - 2.f * u0;
+  const float r = sqrtf(clamp_min(1.f - z * z, 0.f));
+  const float phi = F32(2.0 * kPi) * u1;
+  return V3{r * cosf(phi), r * sinf(phi), z};
 }
 
 }  // namespace mitsuba_path

@@ -2,9 +2,12 @@
 mitsuba_tpu/integrator/mega.py for surface scenes).
 
 A drop-in replacement for PathTracer on scenes the megakernel covers:
-pinhole perspective camera, flat or smooth shading normals, the 14 leaf
-BSDF families (isotropic GGX where microfacet) with the two-sided
-adapter, area emitters, no medium, no textures, box film. `supports()`
+pinhole or thin-lens perspective camera, flat or smooth shading normals,
+the 14 leaf BSDF families (isotropic GGX where microfacet) with the
+two-sided adapter, the mixture, blend, mask, coating and rough-coating
+composites over leaf children, area, point, spot and directional
+emitters and at most one constant environment, no medium, no textures,
+box film: the JAX gate, less its procedural textures. `supports()`
 reports whether a scene qualifies; `for_scene(scene, ...)` packs the
 scene tables once. On CUDA
 tensors li_stats runs whole paths in one launch of the mega_path kernel and
@@ -12,10 +15,8 @@ render_persistent renders every pixel's spp paths in one launch of
 mega_persistent; on CPU tensors both run the plain versions
 (accel/megakernel.py). Estimator and sample streams are PathTracer's.
 
-Not ported yet: the composite families (mixture, coating, rough
-coating), point, spot, directional and constant emitters, the thin-lens
-camera, procedural textures, MegaVolPathTracer (the homogeneous medium
-branch) and render_persistent_sharded.
+Not ported yet: procedural textures, MegaVolPathTracer (the homogeneous
+medium branch) and render_persistent_sharded.
 """
 from __future__ import annotations
 
@@ -24,9 +25,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..accel.megakernel import (LEAF_FAMILIES, N_PSTATE, MegaTables,
+from ..accel.megakernel import (N_PSTATE, MegaTables,
                                 build_mega_tables, primary_rays, run_path,
                                 run_persistent, to_numpy)
+from ..bsdf.bsdf import COMPOSITE_FAMILIES
 from ..scene import scene as S
 from ..scene.scene import SceneData
 from ..sensor.sensor import PerspectiveCamera
@@ -39,11 +41,11 @@ _REF_FAMILIES = (frozenset(range(S.N_MAT_TYPES))
 _REF_EM_TYPES = frozenset({S.EM_AREA, S.EM_POINT, S.EM_CONSTANT,
                            S.EM_DIRECTIONAL, S.EM_SPOT})
 _REF_MAX_TRIS = 32768
-_EM_NAMES = {S.EM_POINT: "point", S.EM_CONSTANT: "constant",
-             S.EM_DIRECTIONAL: "directional", S.EM_SPOT: "spot"}
-# the JAX gate's isotropic-GGX microfacet families (mega.py:98-113)
+_COMPOSITES = frozenset(COMPOSITE_FAMILIES)
+# the JAX gate's isotropic-GGX microfacet families (mega.py:94-110)
 _GGX_ONLY = ((S.MAT_ROUGH_DIELECTRIC, "roughdielectric"),
              (S.MAT_ROUGH_CONDUCTOR, "roughconductor"),
+             (S.MAT_ROUGH_COATING, "roughcoating"),
              (S.MAT_ROUGH_PLASTIC, "roughplastic"))
 
 
@@ -59,11 +61,11 @@ class MegaPathTracer(PathTracer):
                  ) -> tuple[bool, str]:
         """(ok, reason): can this scene, camera and film run on the
         megakernel with results matching PathTracer and a box-filter
-        Film? Where the JAX package refuses a scene this refuses it too;
-        where the JAX package accepts a feature the port lacks, the reason
-        is "<feature> not ported". The JAX arguments allow_medium and
-        tex_procs belong to parts not ported (the medium branch,
-        procedural textures)."""
+        Film? Where the JAX package refuses a scene this refuses it too,
+        with the JAX reason; where the JAX package accepts a feature the
+        port lacks, the reason is "<feature> not ported". The JAX
+        arguments allow_medium and tex_procs belong to parts not ported
+        (the medium branch, procedural textures)."""
         em_types = [int(t) for t in to_numpy(scene.em_type)]
         bad = set(em_types) - _REF_EM_TYPES
         if em_types.count(S.EM_CONSTANT) > 1 or bad:
@@ -72,9 +74,29 @@ class MegaPathTracer(PathTracer):
         if fams - _REF_FAMILIES:
             return False, f"unsupported BSDF families {fams - _REF_FAMILIES}"
         mp, mt = to_numpy(scene.mat_params), to_numpy(scene.mat_type)
+        if fams & _COMPOSITES:
+            # one composite level, leaf children only, no weight
+            # textures, no two-sided child, no textures anywhere
+            mix = mt == S.MAT_MIXTURE
+            coat = (mt == S.MAT_COATING) | (mt == S.MAT_ROUGH_COATING)
+            if (to_numpy(scene.mat_tex) >= 0).any():
+                return False, "composite + textures"
+            if (mp[mix, 21] >= 0).any():
+                return False, "textured mixture weight"
+            kids = np.concatenate([mp[mix, 18], mp[mix, 19],
+                                   mp[coat, 18]]).astype(int)
+            if (kids < 0).any() or (kids >= mt.shape[0]).any():
+                return False, "composite child out of range"
+            if set(int(t) for t in mt[kids]) - (_REF_FAMILIES - _COMPOSITES):
+                return False, "nested/unsupported composite children"
+            if (mp[kids, 15] > 0.5).any():
+                return False, "twosided composite child"
         for code, name in _GGX_ONLY:
             rows = mp[mt == code]
-            if (rows[:, 11] != 1).any() or (rows[:, 9] != rows[:, 10]).any():
+            # roughcoating has no alpha_v slot (the builder leaves it 0)
+            aniso = code != S.MAT_ROUGH_COATING and \
+                (rows[:, 9] != rows[:, 10]).any()
+            if (rows[:, 11] != 1).any() or aniso:
                 return False, f"non-GGX/anisotropic {name}"
         if bool(to_numpy(scene.has_medium)):
             return False, "participating medium"
@@ -90,15 +112,6 @@ class MegaPathTracer(PathTracer):
             return False, "non-perspective camera"
         if film is not None and film.filter_name != "box":
             return False, f"{film.filter_name} reconstruction filter"
-        # the JAX package accepts all of the above; the port's subset:
-        for t in em_types:
-            if t != S.EM_AREA:
-                return False, f"{_EM_NAMES[t]} emitters not ported"
-        if fams - LEAF_FAMILIES:
-            return False, (f"BSDF families {sorted(fams - LEAF_FAMILIES)}"
-                           " not ported")
-        if camera is not None and camera.aperture_radius > 0.0:
-            return False, "thin-lens camera not ported"
         return True, ""
 
     @classmethod
@@ -139,7 +152,7 @@ def render_persistent(integ: MegaPathTracer, camera, spp: int,
     run_persistent): one lane per pixel, each completing exactly `spp`
     paths with in-kernel camera-ray regeneration. Runs on the device of
     the integrator's scene. Returns (image [H, W, 3], n_rays as a 0-d
-    int64 tensor). Pinhole perspective cameras only."""
+    int64 tensor). Pinhole or thin-lens perspective cameras."""
     w, h = camera.width, camera.height
     pix = torch.arange(w * h, dtype=torch.int32,
                        device=integ.tables.scene.device)

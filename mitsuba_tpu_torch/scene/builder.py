@@ -1,7 +1,9 @@
 """Scene builder: declarative scene description → compiled SceneData on one
 device (port of mitsuba_tpu/scene/builder.py, the part the port renders:
-triangle meshes, the 14 leaf BSDF families with the two-sided adapter,
-area emitters).
+triangle meshes, the 14 leaf BSDF families with the two-sided adapter, the
+composites mixturebsdf, blendbsdf, mask, coating and roughcoating, area,
+point, spot, collimated and directional emitters and the constant
+environment).
 
 All transform work is host-side float64; device tensors are float32, as in
 the JAX package, so both builders produce the same arrays. A description
@@ -29,9 +31,11 @@ from .shapes import Mesh
 
 @dataclass
 class Material:
-    """BSDF description. The port compiles the leaf kinds of _KINDS, each
+    """BSDF description. The port compiles the kinds of _KINDS, each
     optionally two-sided; parameters and defaults are the JAX builder's
-    (each plugin's Properties defaults)."""
+    (each plugin's Properties defaults). A composite names its children
+    by material index (child_a, child_b); a mask's second child is an
+    implicit null material that compile_scene appends."""
     kind: str = "diffuse"
     albedo: Sequence[float] = (0.5, 0.5, 0.5)       # diffuse/roughdiffuse
     eta: Sequence[float] | float = (0.2004, 0.9240, 1.1022)  # conductor (Cu)
@@ -56,6 +60,13 @@ class Material:
     #   slope (E[x], E[y]) of the LEADR Gaussian slope distribution
     moments1: Sequence[float] = (0.5, 0.5, 0.0)  # (E[x²], E[y²], E[xy])
     sample_visibility: bool = True           # Smith G2 shadowing on/off
+    # composite adapters (mixture/blend/mask/coating):
+    child_a: int = -1            # material index of nested child A
+    child_b: int = -1            # material index of nested child B
+    weight: float = 0.5          # mixture weight of child A / mask opacity
+    weight_texture: int = -1     # blendbsdf weight / mask opacity texture
+    sigma_a: Sequence[float] = (0.0, 0.0, 0.0)        # coating absorption
+    thickness: float = 1.0                            # coating slab depth
 
     _KINDS = {"diffuse": S.MAT_DIFFUSE, "conductor": S.MAT_CONDUCTOR,
               "roughconductor": S.MAT_ROUGH_CONDUCTOR,
@@ -65,7 +76,10 @@ class Material:
               "ward": S.MAT_WARD, "roughdiffuse": S.MAT_ROUGH_DIFFUSE,
               "null": S.MAT_NULL, "thindielectric": S.MAT_THIN_DIELECTRIC,
               "difftrans": S.MAT_DIFFTRANS,
-              "aniso_roughdiffuse": S.MAT_ANISO_ROUGHDIFFUSE}
+              "aniso_roughdiffuse": S.MAT_ANISO_ROUGHDIFFUSE,
+              "mixturebsdf": S.MAT_MIXTURE, "blendbsdf": S.MAT_MIXTURE,
+              "mask": S.MAT_MIXTURE, "coating": S.MAT_COATING,
+              "roughcoating": S.MAT_ROUGH_COATING}
 
     def compile(self):
         """→ (type code, param row [24] f32, texture slots [2] i32), the
@@ -75,7 +89,8 @@ class Material:
                 f"material kind {self.kind!r}: the port has "
                 f"{sorted(self._KINDS)}")
         for name, unset in (("albedo_texture", -1), ("roughness_texture", -1),
-                            ("normal_texture", -1), ("bump_scale", 0.0)):
+                            ("normal_texture", -1), ("bump_scale", 0.0),
+                            ("weight_texture", -1)):
             if getattr(self, name) != unset:
                 raise NotImplementedError(
                     f"material {name}: textures and normal/bump maps are "
@@ -119,6 +134,20 @@ class Material:
             p[3:5] = self.moments0
             p[5:8] = self.moments1
             p[11] = float(self.sample_visibility)
+        elif code == S.MAT_MIXTURE:
+            # mask = mixture(child, null) with the opacity as the weight
+            # (ref: src/bsdfs/mask.cpp); compile_scene patches the null
+            # child's row id over the -2 sentinel
+            p[18] = float(self.child_a)
+            p[19] = -2.0 if self.kind == "mask" else float(self.child_b)
+            p[20] = self.weight
+            p[21] = float(self.weight_texture)
+        elif code in (S.MAT_COATING, S.MAT_ROUGH_COATING):
+            p[0] = self.int_ior / self.ext_ior
+            p[1:4] = np.asarray(self.sigma_a, np.float64) * self.thickness
+            p[4] = 1.0
+            p[9], p[11] = self.alpha, dist
+            p[18] = float(self.child_a)
         # dispatch metadata packed into the row (scene.py layout)
         p[12] = float(code)
         p[13], p[14] = -1.0, -1.0
@@ -139,9 +168,63 @@ class ShapeInstance:
 
 
 @dataclass
+class PointLight:
+    position: Sequence[float]
+    intensity: Sequence[float]
+    sampling_weight: float = 1.0
+
+
+@dataclass
+class SpotLight:
+    """Spot emitter (ref: src/emitters/spot.cpp): linear angular falloff
+    between beam_width and cutoff_angle (degrees)."""
+    position: Sequence[float]
+    direction: Sequence[float]
+    intensity: Sequence[float]
+    cutoff_angle: float = 20.0
+    beam_width: float = 15.0
+    sampling_weight: float = 1.0
+
+
+@dataclass
+class CollimatedLight:
+    """Collimated beam emitter (ref: src/emitters/collimated.cpp),
+    compiled as the JAX builder compiles it: a spot of half-angle 0.25°
+    from the beam origin carrying `power`."""
+    position: Sequence[float]
+    direction: Sequence[float]
+    power: Sequence[float] = (1.0, 1.0, 1.0)
+    sampling_weight: float = 1.0
+
+
+@dataclass
+class DirectionalLight:
+    """Delta directional emitter (ref: src/emitters/directional.cpp).
+    direction = the direction light travels; irradiance in W/m²."""
+    direction: Sequence[float]
+    irradiance: Sequence[float]
+    sampling_weight: float = 1.0
+
+
+@dataclass
+class ConstantLight:
+    """Constant environment emitter (ref: src/emitters/constant.cpp)."""
+    radiance: Sequence[float]
+    sampling_weight: float = 1.0
+
+
+@dataclass
 class SceneDesc:
+    """envmap: an image-based environment is not ported, and
+    compile_scene raises for one."""
     materials: list = field(default_factory=list)
     shapes: list = field(default_factory=list)
+    point_lights: list = field(default_factory=list)
+    spot_lights: list = field(default_factory=list)
+    collimated_lights: list = field(default_factory=list)
+    directional_lights: list = field(default_factory=list)
+    constant_light: Optional[ConstantLight] = None
+    envmap: object = None
 
     def add_material(self, **kw) -> int:
         self.materials.append(Material(**kw))
@@ -207,6 +290,51 @@ def _mesh_arrays(shape: ShapeInstance):
     return p0, e1, e2, ngn, vn, vuv, area
 
 
+def _unit(v):
+    v = np.asarray(v, np.float64)
+    return v / np.linalg.norm(v)
+
+
+def _light_rows(desc: SceneDesc, emitters: list):
+    """The emitter rows of the non-area lights after the area emitters
+    `emitters`, in the JAX builder's order (point, spot, collimated,
+    directional, constant) and with its values, and the environment
+    emitter's index (-1: none)."""
+    if getattr(desc, "envmap", None) is not None:
+        raise NotImplementedError("EnvmapLight: image-based environments "
+                                  "are not ported")
+    rows = list(emitters)
+    delta = lambda t, rad, pos, w, **kw: rows.append(
+        {"type": t, "radiance": np.asarray(rad, np.float64),
+         "pos": np.asarray(pos, np.float64), "area": 0.0, "weight": w,
+         **kw})
+    for pl in desc.point_lights:
+        delta(S.EM_POINT, pl.intensity, pl.position, pl.sampling_weight)
+    for sl in desc.spot_lights:
+        delta(S.EM_SPOT, sl.intensity, sl.position, sl.sampling_weight,
+              aux=np.concatenate([
+                  _unit(sl.direction),
+                  [np.cos(np.radians(sl.cutoff_angle)),
+                   np.cos(np.radians(sl.beam_width))], np.zeros(3)]))
+    for cl in desc.collimated_lights:
+        half = np.radians(0.25)
+        solid = 2.0 * np.pi * (1.0 - np.cos(half))
+        delta(S.EM_SPOT, np.asarray(cl.power, np.float64) / solid,
+              cl.position, cl.sampling_weight,
+              aux=np.concatenate([_unit(cl.direction),
+                                  [np.cos(half), np.cos(half * 0.9)],
+                                  np.zeros(3)]))
+    for dl in desc.directional_lights:
+        delta(S.EM_DIRECTIONAL, dl.irradiance, _unit(dl.direction),
+              dl.sampling_weight)
+    env_id = -1
+    if desc.constant_light is not None:
+        env_id = len(rows)
+        delta(S.EM_CONSTANT, desc.constant_light.radiance, np.zeros(3),
+              desc.constant_light.sampling_weight)
+    return rows, env_id
+
+
 def compile_scene(desc: SceneDesc, cluster_size: int = 512,
                   device="cuda") -> S.SceneData:
     """Bake the description into SceneData on `device` (the GPU unless
@@ -226,8 +354,11 @@ def compile_scene(desc: SceneDesc, cluster_size: int = 512,
         em_id = -1
         if shape.radiance is not None:
             em_id = len(emitters)
-            emitters.append((np.asarray(shape.radiance, np.float64),
-                             float(arrs[6].sum()), shape.sampling_weight))
+            emitters.append({"type": S.EM_AREA,
+                             "radiance": np.asarray(shape.radiance,
+                                                    np.float64),
+                             "pos": np.zeros(3), "area": float(arrs[6].sum()),
+                             "weight": shape.sampling_weight})
             em_tri_lists.append((np.arange(base, base + n_f), arrs[6]))
         for col, a in zip(cols, arrs):
             col.append(a)
@@ -288,16 +419,22 @@ def compile_scene(desc: SceneDesc, cluster_size: int = 512,
     tri_attr[:, 18] = tri_mat
     tri_attr[:, 19] = tri_em
 
-    # area emitters: per-emitter area CDFs, "globalized" (index + cdf)
+    emitters, env_id = _light_rows(desc, emitters)
+    em_tri_lists += [(np.zeros(0, np.int64), np.zeros(0))] * (
+        len(emitters) - len(em_tri_lists))
+
+    # per-emitter area CDFs, "globalized" (index + cdf)
     n_em = len(emitters)
     em_pmf = Discrete1D.build(
-        np.array([e[2] for e in emitters]) if n_em else np.ones(1), dev)
+        np.array([e["weight"] for e in emitters]) if n_em else np.ones(1),
+        dev)
     tris_flat, cdfg_flat, offs = [], [], [0]
     for ei, (tris, areas) in enumerate(em_tri_lists):
-        cdf = np.cumsum(areas) / areas.sum()
-        cdf[-1] = 1.0
-        tris_flat.append(tris)
-        cdfg_flat.append(ei + cdf)
+        if len(tris):
+            cdf = np.cumsum(areas) / areas.sum()
+            cdf[-1] = 1.0
+            tris_flat.append(tris)
+            cdfg_flat.append(ei + cdf)
         offs.append(offs[-1] + len(tris))
     em_tris = (np.concatenate(tris_flat).astype(np.int32) if tris_flat
                else np.zeros(0, np.int32))
@@ -308,6 +445,14 @@ def compile_scene(desc: SceneDesc, cluster_size: int = 512,
                    if len(em_tris) else np.zeros((1, 12)))
 
     mats = [m.compile() for m in desc.materials]
+    # mask adapters reference an implicit null child (sentinel -2): one
+    # shared null row is appended and the references patched
+    if any(m[1][12] == S.MAT_MIXTURE and m[1][19] == -2.0 for m in mats):
+        null_id = len(mats)
+        for _, row, _ in mats:
+            if row[12] == S.MAT_MIXTURE and row[19] == -2.0:
+                row[19] = float(null_id)
+        mats.append(Material(kind="null").compile())
 
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
     i32 = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=dev)
@@ -321,15 +466,17 @@ def compile_scene(desc: SceneDesc, cluster_size: int = 512,
         mat_type=i32([m[0] for m in mats]),
         mat_params=f32(np.stack([m[1] for m in mats])),
         mat_tex=i32(np.stack([m[2] for m in mats])),
-        em_type=i32(np.full(n_em, S.EM_AREA)),
-        em_radiance=f32(np.reshape([e[0] for e in emitters], (n_em, 3))),
-        em_pos=f32(np.zeros((n_em, 3))),
-        em_area=f32([e[1] for e in emitters]),
+        em_type=i32([e["type"] for e in emitters]),
+        em_radiance=f32(np.reshape([e["radiance"] for e in emitters],
+                                   (n_em, 3))),
+        em_pos=f32(np.reshape([e["pos"] for e in emitters], (n_em, 3))),
+        em_area=f32([e["area"] for e in emitters]),
         em_pmf=em_pmf, em_tri_offset=i32(offs), em_tris=i32(em_tris),
         em_tri_cdfg=f32(em_tri_cdfg), em_tri_data=f32(em_tri_data),
-        em_aux=f32(np.zeros((n_em, 8))),
+        em_aux=f32(np.reshape([e.get("aux", np.zeros(8)) for e in emitters],
+                              (n_em, 8))),
         tex_data=f32(np.zeros((1, 3))), tex_meta=i32(np.zeros((1, 4))),
-        env_id=i32(-1), env_img=f32(np.zeros((1, 1, 3))),
+        env_id=i32(env_id), env_img=f32(np.zeros((1, 1, 3))),
         env_row_cdf=f32([0.0, 1.0]), env_col_cdf=f32([[0.0, 1.0]]),
         env_density=f32(np.ones((1, 1))),
         med_sigma_t=f32(np.zeros((1, 3))), med_albedo=f32(np.zeros((1, 3))),

@@ -12,8 +12,8 @@ from ..core.distribution import Discrete1D
 
 # Material type codes (bsdf dispatch table, ref: EBSDFType bsdf.h:233).
 # The port's BSDF module implements the 14 leaf families, codes 0-12 and
-# 19 (bsdf.PORTED_FAMILIES); compile_scene rejects the composites and the
-# other codes.
+# 19, and the composites 13, 14 and 17 (bsdf.PORTED_FAMILIES);
+# compile_scene has no kind for the other codes.
 MAT_DIFFUSE = 0
 MAT_CONDUCTOR = 1
 MAT_ROUGH_CONDUCTOR = 2
@@ -37,7 +37,7 @@ MAT_ANISO_ROUGHDIFFUSE = 19
 N_MAT_TYPES = 20
 
 # Emitter type codes (ref: EEmitterType emitter.h:76); the port samples
-# EM_AREA only.
+# all but EM_ENVMAP.
 EM_AREA = 0
 EM_POINT = 1
 EM_CONSTANT = 2
@@ -60,6 +60,12 @@ EM_SPOT = 5
 # difftrans:        [0:3] transmittance
 # aniso_roughdiffuse: [0:3] albedo, [3:5] mean slope, [5:8] second
 #                   moments, [11] sample visibility
+# mixture:          [18] child-A row id, [19] child-B row id, [20] weight
+#                   of child A, [21] weight-texture id (-1; mask =
+#                   mixture(child, null) with the opacity as the weight)
+# coating:          [0] eta ratio, [1:4] sigma_a·thickness, [4] coat
+#                   specular scale, [18] child row id; rough coating as
+#                   coating + [9] alpha, [11] distribution
 # all:              [12] type code, [13] albedo-tex id, [14] roughness-tex
 #                   id, [15] two-sided flag, [16] normal/bump-map tex id,
 #                   [17] bump scale.
@@ -119,8 +125,8 @@ class SceneData(NamedTuple):
     # -- textures (placeholders) -----------------------------------------
     tex_data: torch.Tensor    # [1, 3]
     tex_meta: torch.Tensor    # [1, 4] int32
-    # -- environment (placeholders) --------------------------------------
-    env_id: torch.Tensor      # scalar int32, -1 = no environment emitter
+    # -- environment (the image fields are placeholders) ----------------
+    env_id: torch.Tensor      # scalar int32: the constant emitter, or -1
     env_img: torch.Tensor     # [1, 1, 3]
     env_row_cdf: torch.Tensor  # [2]
     env_col_cdf: torch.Tensor  # [1, 2]

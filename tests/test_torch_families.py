@@ -105,14 +105,15 @@ def _close_sampled(outs_t, outs_j, pdf_j):
     whose JAX pdf is positive every output is within rel 1e-5 / abs 1e-6,
     and every output of every lane is within abs 1e-4 (rel 1e-3 above
     0.1)."""
-    ok = np.ones(N, bool)
+    n = np.asarray(pdf_j).shape[0]
+    ok = np.ones(n, bool)
     for t, j in zip(outs_t, outs_j):
-        t = np.asarray(t, np.float32).reshape(N, -1)
-        j = np.asarray(j, np.float32).reshape(N, -1)
+        t = np.asarray(t, np.float32).reshape(n, -1)
+        j = np.asarray(j, np.float32).reshape(n, -1)
         ok &= np.isclose(t, j, rtol=RTOL, atol=ATOL).all(-1)
         np.testing.assert_allclose(t, j, rtol=1e-3, atol=1e-4)
     used = np.asarray(pdf_j) > 0
-    assert used.sum() > N // 8
+    assert used.sum() > n // 8
     assert ok[used].mean() >= 0.99, ok[used].mean()
 
 
@@ -184,7 +185,8 @@ def test_eager_family_matches_jax(kind, two_sided):
     fams = (code,)
     jm = jbsdf.MatInfo(*(jnp.asarray(x) for x in (mt, params) * 3),
                        jnp.ones(N))
-    tm = tbsdf.MatInfo(torch.as_tensor(mt).long(), torch.as_tensor(params))
+    tm = tbsdf.MatInfo(*(torch.as_tensor(mt).long(),
+                         torch.as_tensor(params)) * 3, torch.ones(N))
     J = [jnp.asarray(x) for x in (wi, wo, u2, u1)]
     T = [torch.as_tensor(x) for x in (wi, wo, u2, u1)]
     _close(tbsdf.eval_bsdf_ex(tm, T[0], T[1], fams),
@@ -353,12 +355,12 @@ def test_shade_supports_refuses(leaf_scene, case, reason):
 
 
 @pytest.mark.parametrize("case,reason", [
-    ("mixture", "BSDF families [13] not ported"),
-    ("point", "point emitters not ported"),
-    ("spot", "spot emitters not ported"),
-    ("directional", "directional emitters not ported"),
-    ("constant", "constant emitters not ported"),
-    ("thin lens", "thin-lens camera not ported"),
+    ("mixture", "textured mixture weight"),
+    ("point", ""),
+    ("spot", ""),
+    ("directional", ""),
+    ("constant", ""),
+    ("thin lens", ""),
     ("texture", "textured material (procedural checker/grid textures not "
                 "ported)"),
     ("beckmann rough plastic", "non-GGX/anisotropic roughplastic"),
@@ -366,10 +368,11 @@ def test_shade_supports_refuses(leaf_scene, case, reason):
     ("anisotropic rough conductor", "non-GGX/anisotropic roughconductor"),
 ])
 def test_mega_supports_refuses(leaf_scene, case, reason):
-    """MegaPathTracer refuses the composites, delta and constant lights,
-    the thin lens and (procedural) textures as "not ported" (the JAX
-    package has them), and the non-GGX or anisotropic microfacet variants
-    as the JAX gate does."""
+    """MegaPathTracer refuses (procedural) textures as "not ported" (the
+    JAX package has them), and a mixture row whose weight-texture slot
+    holds texture 0 and the non-GGX or anisotropic microfacet variants as
+    the JAX gate does; it takes delta and constant lights and the thin
+    lens (reason "": accepted)."""
     em = {"point": 1, "spot": 5, "directional": 4, "constant": 2}
     cam = None
     if case in em:
@@ -390,7 +393,7 @@ def test_mega_supports_refuses(leaf_scene, case, reason):
                                                        0.0),
                  "anisotropic rough conductor": _retyped(leaf_scene, 2, 10,
                                                          0.05)}[case]
-    assert MegaPathTracer.supports(scene, cam) == (False, reason)
-    if cam is None:
+    assert MegaPathTracer.supports(scene, cam) == (not reason, reason)
+    if cam is None and reason:
         with pytest.raises(NotImplementedError, match=re.escape(reason)):
             MegaPathTracer.for_scene(scene)

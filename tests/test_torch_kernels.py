@@ -1,7 +1,8 @@
 """The port's CUDA kernels (the trace kernel, the path megakernels and the
 fused shade kernel) against their plain PyTorch versions, on the card,
-on the Cornell box, the four-material scene and the leaf-families scene
-(chip_smoke.py). Every test is marked `cuda` and skips without a card.
+on the Cornell box (also through a thin lens), the four-material scene
+(also under point, spot, directional and constant lights), the
+leaf-families scene and the lights-and-composites scene (chip_smoke.py). Every test is marked `cuda` and skips without a card.
 The file
 imports neither jax nor the JAX package, so it also runs where only the
 port is installed:
@@ -12,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (four_materials, leaf_families_camera,
-                        leaf_families_desc, walk_build)
+from chip_smoke import (LENS, four_materials, leaf_families_camera,
+                        leaf_families_desc, lights_scene, walk_build)
 from mitsuba_tpu_torch.accel import dense as tdense
 from mitsuba_tpu_torch.accel import megakernel as tmk
 from mitsuba_tpu_torch.accel import shade_kernel as tshade
@@ -466,3 +467,107 @@ def test_mega_path_walks_match_plain_on_card(n, n_bounces, scene_name,
     assert torch.equal(k, tmk.path_plain(tables, 5, 6, n_bounces, st, pix,
                                          samp, 1))
     assert tmk.LAUNCHES["mega_path"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the lights-and-composites scene (the megakernels' kExt instantiations),
+# the thin lens, and the shade kernel under delta and constant lights: on
+# ragged, shuffled lanes with dead ones among them, bit for bit
+# ---------------------------------------------------------------------------
+
+def _lights_lanes(dev, n, seed, scene_name="lights"):
+    """A scene, n shuffled pixels of its 257² film, their sample ids and
+    their camera paths, every fifth lane dead on entry. Scenes: "lights",
+    the lights-and-composites scene at sphere(6, 12); "lens", the Cornell
+    box through chip_smoke.LENS's thin lens; "shade", the four-material
+    scene with chip_smoke.add_lights's lights."""
+    import dataclasses
+    if scene_name == "lights":
+        scene, cam = lights_scene(257, dev, (6, 12))
+    elif scene_name == "lens":
+        scene = tcompile(tpresets.cornell_box(), device=dev)
+        cam = dataclasses.replace(tpresets.cornell_camera(257, 257), **LENS)
+    else:
+        scene, cam = four_materials(257, dev, lights=True)
+    pix = torch.as_tensor(np.random.RandomState(seed).permutation(
+        257 * 257)[:n].astype(np.int32), device=dev)
+    st = initial_state(*tmk.primary_rays(cam, 0, pix, 0))
+    st[12] = torch.where(torch.arange(n, device=dev) % 5 == 2, 0.0, st[12])
+    return scene, cam, pix, torch.zeros_like(pix), st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounce", [0, 3])
+@pytest.mark.parametrize("n", [33, 100])
+def test_lights_mega_bounce_matches_plain_on_card(n, bounce):
+    """mega_bounce's kExt instantiation (delta and constant lights, the
+    sky on escape, mixture, blend, mask, coating and rough coating)
+    against MegaPlainTracer's bounce, every row bit for bit."""
+    dev = _card()
+    scene, _, pix, samp, st = _lights_lanes(dev, n, n + bounce)
+    tables = MegaPathTracer.for_scene(scene, max_depth=8).tables
+    assert tables.ext and tables.env >= 0
+    for b in range(bounce):
+        st = tmk.bounce_plain(tables, 5, 8, st, pix, samp, 0, b)[:16]
+    tmk.reset_launches()
+    k = tmk.run_bounce(tables, 5, 8, st, pix, samp, 0, bounce)
+    assert torch.equal(k, tmk.bounce_plain(tables, 5, 8, st, pix, samp, 0,
+                                           bounce))
+    assert tmk.LAUNCHES["mega_bounce"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", list(WALKS))
+@pytest.mark.parametrize("n", [33, 100])
+def test_lights_mega_path_matches_plain_on_card(n, walk):
+    """mega_path's kExt instantiation against path_plain bit for bit,
+    count rows included, under both walk builds."""
+    dev = _card()
+    scene, _, pix, samp, st = _lights_lanes(dev, n, n)
+    tables = MegaPathTracer.for_scene(scene, max_depth=8).tables
+    tmk.reset_launches()
+    with walk_build(*WALKS[walk]):
+        k = tmk.run_path(tables, 5, 8, 8, st, pix, samp, 1)
+    assert torch.equal(k, tmk.path_plain(tables, 5, 8, 8, st, pix, samp, 1))
+    assert tmk.LAUNCHES["mega_path"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene_name", ["lights", "lens"])
+@pytest.mark.parametrize("n", [33, 100])
+def test_lights_mega_persistent_matches_plain_on_card(n, scene_name):
+    """mega_persistent's kExt instantiation against persistent_plain bit
+    for bit over 3 spp: on the lights-and-composites scene, and on the
+    Cornell box through the thin lens, whose regenerated camera rays
+    take the aperture sample."""
+    dev = _card()
+    scene, cam, pix, samp, st = _lights_lanes(dev, n, n, scene_name)
+    tables = MegaPathTracer.for_scene(scene, max_depth=8).tables
+    pst = torch.cat([st, torch.zeros_like(st[:8])])
+    tmk.reset_launches()
+    k = tmk.run_persistent(tables, 5, 8, 3, cam, pst, pix, samp, 1)
+    p = tmk.persistent_plain(tables, 5, 8, 3, cam, pst, pix, samp, 1)
+    assert torch.equal(k, p)
+    live = st[12] > 0.5
+    assert (k[17][live] == 3).all() and (k[17][~live] == 0).all()
+    assert tmk.LAUNCHES["mega_persistent"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounce", [0, 3])
+@pytest.mark.parametrize("n", [33, 100])
+def test_lights_shade_matches_plain_on_card(n, bounce):
+    """The shade kernel on the four-material scene under point, spot,
+    directional and constant lights (delta NEE rows, the 1e30 distance
+    of the sun and the sky) against shade_plain bit for bit."""
+    dev = _card()
+    scene, _, pix, samp, st = _lights_lanes(dev, n, n + bounce, "shade")
+    tracer = PathTracer(max_depth=6).specialized_for(scene)
+    for b in range(bounce):
+        st = tracer.bounce(scene, st, 0, pix, samp, b)[0]
+    packed = tracer.shade_inputs(scene, st, 0, pix, samp, bounce)
+    tshade.reset_launches()
+    k = tshade.run_shade(scene, packed, pix, samp, 0, bounce, 5, 6)
+    assert torch.equal(k, tshade.shade_plain(scene, packed, pix, samp, 0,
+                                             bounce, 5, 6))
+    assert tshade.LAUNCHES["shade"] == 1

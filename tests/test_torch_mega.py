@@ -83,9 +83,10 @@ def _with(scene, **fields):
 
 
 def test_supports(cornell):
-    """True on the Cornell box, as in the JAX package, and with a smooth
-    sphere added; False with the feature's name on scenes the port's
-    subset excludes."""
+    """True on the Cornell box, as in the JAX package, with a smooth
+    sphere added, with a point light and with a thin lens; False with the
+    JAX gate's reason where it refuses (a mixture row whose weight-texture
+    slot 21 holds texture 0, a medium)."""
     jscene, tscene, _ = cornell
     assert JMega.supports(jscene) == (True, "")
     assert MegaPathTracer.supports(
@@ -99,20 +100,19 @@ def test_supports(cornell):
     smooth = tcompile(desc, device="cpu")
     cases = [
         (_with(tscene, mat_type=torch.tensor([0, 13, 0], dtype=torch.int32),
-               mat_params=mixture), "BSDF families [13] not ported"),
-        (point, "point emitters not ported"),
+               mat_params=mixture), "textured mixture weight"),
         (_with(tscene, has_medium=torch.tensor(True)),
          "participating medium"),
     ]
     assert MegaPathTracer.supports(smooth) == (True, "")
+    assert MegaPathTracer.supports(point) == (True, "")
     for scene, reason in cases:
         assert MegaPathTracer.supports(scene) == (False, reason)
         with pytest.raises(NotImplementedError, match=re.escape(reason)):
             MegaPathTracer.for_scene(scene)
     lens = tpresets.cornell_camera(8, 8)
     lens = type(lens)(8, 8, lens.fov_x, lens.to_world, aperture_radius=0.1)
-    assert MegaPathTracer.supports(tscene, lens) == \
-        (False, "thin-lens camera not ported")
+    assert MegaPathTracer.supports(tscene, lens) == (True, "")
 
 
 def _primary_rays(seed=0):

@@ -121,8 +121,12 @@ def test_scene_from_numpy_round_trip(scenes):
 def test_scene_from_numpy_rejects_unported():
     arrays = _numpy_fields(jcompile(jpresets.cornell_box()))
     arrays["mat_type"] = arrays["mat_type"].copy()
-    arrays["mat_type"][1] = 13                # mixture
-    with pytest.raises(NotImplementedError, match=r"BSDF families \[13\]"):
+    arrays["mat_type"][1] = 15                # Hanrahan-Krueger slab
+    with pytest.raises(NotImplementedError, match=r"BSDF families \[15\]"):
+        scene_from_numpy(arrays, device="cpu")
+    arrays = _numpy_fields(jcompile(jpresets.cornell_box()))
+    arrays["em_type"] = np.full_like(arrays["em_type"], 3)   # envmap
+    with pytest.raises(NotImplementedError, match="envmap"):
         scene_from_numpy(arrays, device="cpu")
 
 
@@ -178,8 +182,12 @@ def test_padding_check_rejects_broken_table():
 
 def test_compile_scene_rejects_unported():
     d = tpresets.cornell_box()
-    d.add_material(kind="coating")
-    with pytest.raises(NotImplementedError, match="coating"):
+    d.add_material(kind="hk")
+    with pytest.raises(NotImplementedError, match="'hk'"):
+        tcompile(d, device="cpu")
+    d = tpresets.cornell_box()
+    d.envmap = np.ones((4, 8, 3), np.float32)
+    with pytest.raises(NotImplementedError, match="EnvmapLight"):
         tcompile(d, device="cpu")
     d = tpresets.cornell_box()
     d.add_material(kind="diffuse", albedo_texture=0)

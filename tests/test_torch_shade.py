@@ -190,7 +190,8 @@ def test_bsdf_matches_jax(kind, two_sided):
     jm = jbsdf.MatInfo(jnp.asarray(mt), jnp.asarray(params), jnp.asarray(mt),
                        jnp.asarray(params), jnp.asarray(mt),
                        jnp.asarray(params), jnp.ones(n))
-    tm = tbsdf.MatInfo(torch.as_tensor(mt).long(), torch.as_tensor(params))
+    tm = tbsdf.MatInfo(*(torch.as_tensor(mt).long(),
+                         torch.as_tensor(params)) * 3, torch.ones(n))
     J = [jnp.asarray(x) for x in (wi, wo, u2, u1)]
     T = [torch.as_tensor(x) for x in (wi, wo, u2, u1)]
     _close(tbsdf.eval_bsdf_ex(tm, T[0], T[1], fams),
