@@ -105,16 +105,39 @@ Phases, each of which must pass or the script exits non-zero:
      directional and constant lights added: against shade_plain lane by
      lane at bounces 0 and 3 (timed, with the shares of lanes whose NEE
      sample is delta or the sky), then the eager path at 64 spp, fused
-     "on" against "off". Phases 17-19 require bit-equality on every
-     lane.
+     "on" against "off". Phases 17-20 require bit-equality on every
+     lane;
+ 20. the homogeneous medium (FOG_SCENES: the foggy Cornell box at 256²,
+     8 bounces; the fog-and-point-light scene, also with a finite medium
+     extent, and the foggy box with g = 0 at 128²; MegaVolPathTracer, the
+     kExt instantiations' medium branch): the trace kernel against its
+     plain version on the fog's camera rays and first shadow rays (from
+     scatter points, with no offset), each timed beside its bound;
+     mega_bounce at bounces 0-3, mega_path over one sample and
+     mega_persistent at 4 spp on 128² pixels, each against its plain
+     version bit for bit with the count rows, on every fog scene; one
+     pass bounce by bounce (counted) against mega_path; the eager
+     VolPathTracer at 16 spp (trace launches counted; rays/s and the
+     busy share of a pass), render() with MegaVolPathTracer (counted)
+     and render_persistent at 16 spp against it under the image rule
+     with attempted shadow rays >= its unoccluded ones; one timed
+     256-spp mega_persistent launch (counted) and mega_path's time, each
+     beside its bound; DirectIntegrator's rays/s on the Cornell box; the
+     eager VolPathTracer and DirectIntegrator on the card against the
+     same integrators on CPU tensors at 64², 2 spp; and the guards: this
+     run's Cornell 2048-spp and lights 256-spp launches printed beside
+     the times recorded before the medium branch (GUARD_BANDS), for
+     information only: a time from another call decides nothing, and
+     scripts/ab_persistent.py compares two checkouts in one call.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 reports them, and {"ok": true, "device": {...}}; the line before them lists
 every ported kernel with its launches, error and times on the Cornell box
 (the shade kernel: the four-material scene), under "leaf_families" the
-same on the leaf-families scene and under "lights_composites" on the
+same on the leaf-families scene, under "lights_composites" on the
 lights-and-composites scene (the shade kernel: the four-material scene
-with its lights); phase 16 prints {"walk": ...}, its times by
+with its lights) and under "fog" (the trace kernel and the megakernels)
+on the foggy Cornell box; phase 16 prints {"walk": ...}, its times by
 variant. Exits non-zero
 without a CUDA device, and without the package beside it.
 """
@@ -169,6 +192,15 @@ SHADE_OPS = {"ray mint": 7, "hit record (normal, point)": 39,
              "shadow origin, mint, maxt": 27, "NEE MIS + L": 17,
              "BSDF sample, next ray": 62, "Russian roulette": 11}
 TWO_SIDED_OPS = 3           # the flip's three multiplies
+# SHADE_OPS for a lane that scatters in the medium, from the same code's
+# medium branch (bounce_front / bounce_back, kExt with Tables.med): no
+# emitter hit, no wo to local and no BSDF (HG's value and sample are
+# medium_ops'), the shadow ray from the scatter point itself (mint 7 and
+# maxt 1, no offset), and for the next ray the phase draw's two floats 4,
+# the throughput's three products and eta's one
+MEDIUM_SHADE_OPS = {**SHADE_OPS, "emitter hit + MIS": 0, "wo to local": 0,
+                    "diffuse f": 0, "shadow origin, mint, maxt": 8,
+                    "BSDF sample, next ray": 8}
 CAMERA_OPS = 41             # camera_path: jitter, pinhole ray, normalize
 # the emitter sample of the kExt instantiations by emitter type, counted
 # from csrc/megakernel.cu sample_direct as SHADE_OPS is (the pick's
@@ -234,6 +266,30 @@ WALK_VARIANTS = {
 WALK_TURNS = ("old", "simt", "new", "new", "simt", "old", "T4", "T8", "T12",
               "T16", "T20", "T33")
 WALK_DEFAULT_T = 24         # MITSUBA_WALK_T's default in trace_common.cuh
+# phase 20: the homogeneous medium. The foggy Cornell box of
+# tests/test_mega_tpu.py:335-365 at the main path's width, the
+# fog-and-point-light scene of :426-466 (an open scene: escaped rays),
+# the latter with a finite medium extent and the former with g = 0
+FOG_CORNELL = {"sigma_t": (2.0, 2.5, 3.0), "albedo": (0.9, 0.8, 0.7),
+               "g": 0.3}
+FOG_POINT = {"sigma_t": (0.25, 0.3, 0.35), "albedo": (0.9, 0.85, 0.8),
+             "g": 0.1}
+FOG_SCENES = {"fog": ("cornell", {}), "fog_point": ("point", {}),
+              "fog_point_bound": ("point", {"bound": 4.0}),
+              "fog_g0": ("cornell", {"g": 0.0})}
+FOG_VARIANT_RES = 128       # every fog scene but "fog" (at CORNELL_RES)
+FOG_BOUNCES = (0, 1, 2, 3)  # mega_bounce against its plain version
+FOG_PLAIN_RES = 128         # mega_persistent against persistent_plain ...
+FOG_PLAIN_SPP = 4           # ... at 4 spp
+FOG_SPP = 16                # eager VolPathTracer, render() with
+                            # MegaVolPathTracer and render_persistent
+FOG_TIMED_SPP = 256         # one mega_persistent launch, timed
+FOG_CPU_RES, FOG_CPU_SPP = 64, 2   # the eager integrators, card vs CPU
+# the guards' bands (printed, not checked): the Cornell 2048-spp and
+# lights 256-spp launches as recorded before the medium branch (PERF.md §6,
+# NVIDIA H100 80GB HBM3 at 700 W)
+GUARD_BANDS = {"cornell 2048 spp": (165.88, 167.49),
+               "lights 256 spp": (178.47, 185.23)}
 # families whose eval runs without the both-above-the-surface test
 TRANSMISSIVE = (5, 12)      # rough dielectric, difftrans
 SHADE_ROWS_IN, SHADE_ROWS_OUT = 50, 16
@@ -596,27 +652,37 @@ _COUNTED = {"add", "sub", "mul", "div", "truediv", "rsub", "radd", "rmul",
             "reciprocal"}
 
 
-def family_ops(tables):
-    """fp32 operations of each family's eval and sample branch for one
-    lane, counted by running the plain versions of the device helpers
-    (accel/megakernel.py bsdf_eval_pdf, bsdf_sample), which the kernels
-    compute op for op, on one lane of each of the tables' materials
-    under a TorchFunctionMode that counts arithmetic calls (selects and
-    compares not counted; rough dielectric's eval computes both candidate
-    micronormals where the kernel computes one, so its count is ~10
-    over). Returns {family: (eval_ops, sample_ops)}."""
+def count_ops(fn, elementwise=False):
+    """The arithmetic PyTorch calls of fn() (each op of _COUNTED once,
+    selects and compares not counted; elementwise: each element of its
+    result, for a lane's [1, 3] vectors), under a TorchFunctionMode; fn
+    runs on one lane, so the count is the fp32 operations of one lane."""
     from torch.overrides import TorchFunctionMode
-
-    from mitsuba_tpu_torch.accel import megakernel as mk
 
     class Count(TorchFunctionMode):
         n = 0
 
         def __torch_function__(self, func, types, args=(), kwargs=None):
-            name = getattr(func, "__name__", "").strip("_")
-            if name in _COUNTED:
-                Count.n += 1
-            return func(*args, **(kwargs or {}))
+            out = func(*args, **(kwargs or {}))
+            if getattr(func, "__name__", "").strip("_") in _COUNTED:
+                Count.n += out.numel() if elementwise and isinstance(
+                    out, torch.Tensor) else 1
+            return out
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def family_ops(tables):
+    """fp32 operations of each family's eval and sample branch for one
+    lane, counted (count_ops) by running the plain versions of the device
+    helpers (accel/megakernel.py bsdf_eval_pdf, bsdf_sample), which the
+    kernels compute op for op, on one lane of each of the tables'
+    materials (rough dielectric's eval computes both candidate
+    micronormals where the kernel computes one, so its count is ~10
+    over). Returns {family: (eval_ops, sample_ops)}."""
+    from mitsuba_tpu_torch.accel import megakernel as mk
 
     out = {}
     for row in tables.mat.cpu():
@@ -627,15 +693,40 @@ def family_ops(tables):
         t = lambda *v: torch.tensor(v, dtype=torch.float32)
         wo_z = -0.6 if fam in TRANSMISSIVE else 0.6
         args = (t(0.3), t(0.2), t(0.9), t(-0.2), t(0.5), t(wo_z))
-        with Count():
-            Count.n = 0
-            mk.bsdf_eval_pdf(m, *args, families=(fam,))
-            n_eval = Count.n
-            Count.n = 0
-            mk.bsdf_sample(m, *args[:3], t(0.3), t(0.7), t(0.4),
-                           families=(fam,))
-            out[fam] = (n_eval, Count.n)
+        out[fam] = (
+            count_ops(lambda: mk.bsdf_eval_pdf(m, *args, families=(fam,))),
+            count_ops(lambda: mk.bsdf_sample(m, *args[:3], t(0.3), t(0.7),
+                                             t(0.4), families=(fam,))))
     return out
+
+
+def medium_ops(tables):
+    """fp32 operations of the medium's terms for one lane, counted
+    (count_ops) from their plain versions, which csrc/megakernel.cu
+    computes op for op: the distance sample and segment weight of every
+    live lane (accel/megakernel.py medium_segment: the channel pick, the
+    log, six exps, two pdfs), the scatter point, HG toward the light
+    (hg_value and its cosine), the HG continuation (hg_sample_kernel) and
+    the transmittance on an unoccluded NEE ray (three exps, three
+    products)."""
+    from mitsuba_tpu_torch.accel import megakernel as mk
+    from mitsuba_tpu_torch.media.homogeneous import transmittance
+    med = tables.medium
+    t = lambda *v: torch.tensor([v], dtype=torch.float32)
+    one, d, wo = t(0.5), t(0.0, 0.6, -0.8), t(0.48, 0.0, 0.8771)
+    live = torch.ones(1, dtype=torch.bool)
+    sigma_t = torch.tensor(med[0:3])
+    count = functools.partial(count_ops, elementwise=True)
+    return {
+        "segment": count(lambda: mk.medium_segment(
+            med, t(0.3, 0.6), one[0], live)),
+        "scatter point": count(lambda: d + one[:, None] * d),
+        "phase nee": count(lambda: mk.hg_value(med[6], -(
+            (d[:, 0] * wo[:, 0] + d[:, 1] * wo[:, 1]) + d[:, 2] * wo[:, 2]))),
+        "phase sample": count(lambda: mk.hg_sample_kernel(
+            med[6], d, t(0.3, 0.6))),
+        "transmittance": count(lambda: d * transmittance(
+            sigma_t, one[0], med[7]))}
 
 
 def composite_ops(tables, fam_ops):
@@ -669,33 +760,69 @@ def composite_ops(tables, fam_ops):
     return out
 
 
+def nee_rays(tables, state, pix, samp, bounce, max_depth, seed=0):
+    """The events of one bounce of the megakernel's plain version from
+    `state`, and their NEE shadow rays: (its, in_med: the lanes that
+    scatter in the tables' medium, ds: the NEE sample from the scatter
+    point or the hit, so: the shadow ray's origin, the scatter point
+    itself or the offset hit, attempted: the lanes that attempt it)."""
+    from mitsuba_tpu_torch.accel import dense
+    from mitsuba_tpu_torch.accel import megakernel as mk
+    from mitsuba_tpu_torch.core import rng
+    from mitsuba_tpu_torch.emitter.emitter import sample_direct
+    from mitsuba_tpu_torch.integrator.common import (
+        DIM_MEDIUM, DIM_NEE_POS, DIM_NEE_SEL, bounce_dim, offset_ray_origin,
+        ray_mint)
+    scene = tables.plain_scene
+    o = state[0:3].T.contiguous()
+    d = state[3:6].T.contiguous()
+    live = state[12] > 0.5
+    its = dense.ray_intersect(scene, o, d, ray_mint(o),
+                              torch.full_like(o[:, 0], 1e30), live)
+    dim = lambda off: bounce_dim(bounce, off)
+    in_med, p_event = torch.zeros_like(live), its.p
+    if tables.medium is not None:
+        sampled, t_med, _ = mk.medium_segment(
+            tables.medium, rng.sample_2d(seed, pix, dim(DIM_MEDIUM), samp),
+            torch.where(its.valid, its.t, 1e30), live)
+        in_med = live & sampled
+        p_event = torch.where(in_med[:, None], o + t_med[:, None] * d,
+                              its.p)
+    ds = sample_direct(scene, p_event,
+                       rng.sample_1d(seed, pix, dim(DIM_NEE_SEL), samp),
+                       rng.sample_2d(seed, pix, dim(DIM_NEE_POS), samp))
+    so = torch.where(in_med[:, None], p_event,
+                     offset_ray_origin(its.p, its.ng, ds.d))
+    attempted = ((its.valid | in_med) & (bounce + 3 <= max_depth + 1)
+                 & (ds.pdf > 0))
+    return its, in_med, ds, so, attempted
+
+
 def bounce_work(tables, state, pix, samp, bounce, fam_ops, max_depth,
                 seed=0):
     """needed_work for one bounce of the megakernel on its plain scene: the
     closest-hit rays of the live lanes, the shadow rays the kernel traces
-    (attempted NEE with the BSDF nonzero toward the light) and the
-    shading operations of the hits, each charged the common SHADE_OPS
-    plus its family's sample and, where the eval branch runs, its eval.
-    Returns a dict of ray counts, ops and table bytes."""
+    (attempted NEE with the BSDF, or the phase function, nonzero toward
+    the light) and the shading operations of the events, each charged
+    the common SHADE_OPS plus, on a surface, its family's sample and,
+    where the eval branch runs, its eval. With a medium in the tables,
+    every live lane is charged the distance sample, a lane that scatters
+    MEDIUM_SHADE_OPS in place of SHADE_OPS and the scatter point and HG's
+    value and sample in place of its BSDF's, and an unoccluded NEE ray the
+    transmittance (medium_ops). Returns a dict of ray counts, ops and
+    table bytes."""
     from mitsuba_tpu_torch.accel import dense
     from mitsuba_tpu_torch.accel import megakernel as mk
-    from mitsuba_tpu_torch.core import rng
     from mitsuba_tpu_torch.core.math import SHADOW_EPSILON, Frame
-    from mitsuba_tpu_torch.emitter.emitter import sample_direct
-    from mitsuba_tpu_torch.integrator.common import (
-        DIM_NEE_POS, DIM_NEE_SEL, bounce_dim, offset_ray_origin, ray_mint)
+    from mitsuba_tpu_torch.integrator.common import ray_mint
     scene = tables.plain_scene
     o = state[0:3].T.contiguous()
     d = state[3:6].T.contiguous()
     live = state[12] > 0.5
     maxt = torch.full_like(o[:, 0], 1e30)
-    its = dense.ray_intersect(scene, o, d, ray_mint(o), maxt, live)
-    ds = sample_direct(scene, its.p,
-                       rng.sample_1d(seed, pix, bounce_dim(bounce,
-                                                           DIM_NEE_SEL), samp),
-                       rng.sample_2d(seed, pix, bounce_dim(bounce,
-                                                           DIM_NEE_POS), samp))
-    attempted = its.valid & (bounce + 3 <= max_depth + 1) & (ds.pdf > 0)
+    its, in_med, ds, so, attempted = nee_rays(tables, state, pix, samp,
+                                              bounce, max_depth, seed)
+    surf = its.valid & ~in_med
     mat, mat_a, mat_b = mk.child_rows(tables, its.mat_id)
     frame = Frame.from_normal(its.ns)
     wi, wo = Frame.to_local(frame, -d), Frame.to_local(frame, ds.d)
@@ -704,30 +831,40 @@ def bounce_work(tables, state, pix, samp, bounce, fam_ops, max_depth,
                                   wi[:, 2] * fsign, wo[:, 0], wo[:, 1],
                                   wo[:, 2] * fsign,
                                   set(tables.mat[:, 12].long().tolist()))
-    traced = attempted & ((f[0] > 0) | (f[1] > 0) | (f[2] > 0))
+    traced = attempted & (in_med | (f[0] > 0) | (f[1] > 0) | (f[2] > 0))
     both_up = (wi[:, 2] * fsign > 0) & (wo[:, 2] * fsign > 0)
     common = (sum(SHADE_OPS.values()) - SHADE_OPS["diffuse f"]
               - fam_ops[0][1] + TWO_SIDED_OPS) if 0 in fam_ops else \
         sum(SHADE_OPS.values()) - SHADE_OPS["diffuse f"] + TWO_SIDED_OPS
-    shade_ops = common * int(its.valid.sum())
+    shade_ops = (common * int(surf.sum())
+                 + (sum(MEDIUM_SHADE_OPS.values()) + TWO_SIDED_OPS)
+                 * int(in_med.sum()))
     for fam, (n_eval, n_sample) in fam_ops.items():
-        hit_f = its.valid & (mat[12] == fam)
+        hit_f = surf & (mat[12] == fam)
         runs = attempted & hit_f & (both_up | (fam in TRANSMISSIVE))
         shade_ops += n_sample * int(hit_f.sum()) + n_eval * int(runs.sum())
     for row, (n_own, n_kids, n_sample) in composite_ops(tables,
                                                         fam_ops).items():
-        hit_r = its.valid & (its.mat_id == row)
+        hit_r = surf & (its.mat_id == row)
         shade_ops += (n_sample * int(hit_r.sum())
                       + n_own * int((attempted & hit_r).sum())
                       + n_kids * int((attempted & hit_r & both_up).sum()))
     if tables.ext:   # the emitter sample by type, the sky on escape
         em = scene.em_type[ds.em_id.clamp(min=0)]
         for t, n in LIGHT_OPS.items():
-            shade_ops += (n - LIGHT_OPS[0]) * int((its.valid & (em == t))
-                                                  .sum())
+            shade_ops += (n - LIGHT_OPS[0]) * int(((surf | in_med)
+                                                   & (em == t)).sum())
         if tables.env >= 0:
-            shade_ops += ENV_OPS * int((live & ~its.valid).sum())
-    so = offset_ray_origin(its.p, its.ng, ds.d)
+            shade_ops += ENV_OPS * int((live & ~its.valid & ~in_med).sum())
+    if tables.medium is not None:
+        m = medium_ops(tables)
+        lit = traced & ~dense.ray_test(scene, so, ds.d, ray_mint(so),
+                                       ds.dist * (1.0 - SHADOW_EPSILON),
+                                       traced)
+        shade_ops += (m["segment"] * int(live.sum())
+                      + (m["scatter point"] + m["phase nee"]
+                         + m["phase sample"]) * int(in_med.sum())
+                      + m["transmittance"] * int(lit.sum()))
     c_tests, c_ops, c_bytes = needed_work(scene, o, d, ray_mint(o), maxt,
                                           live, False)
     s_tests, s_ops, s_bytes = needed_work(
@@ -1794,6 +1931,325 @@ def lights_phases(card, kernels):
         k["lights_composites"] = out[k["name"]]
 
 
+def fog_cornell_desc(builder, presets, **medium):
+    """The foggy Cornell box (tests/test_mega_tpu.py:335-365) over either
+    package's builder and presets modules; `medium` overrides fields of
+    FOG_CORNELL (g, bound)."""
+    desc = presets.cornell_box()
+    desc.medium = builder.Medium(**{**FOG_CORNELL, **medium})
+    return desc
+
+
+def fog_point_desc(builder, tf, shapes, **medium):
+    """The fog-and-point-light scene (tests/test_mega_tpu.py:426-466): a
+    diffuse floor and sphere(16, 32) under a point light in FOG_POINT's
+    fog, over either package's builder module; `medium` overrides fields
+    of FOG_POINT (bound)."""
+    d = builder.SceneDesc()
+    floor = d.add_material(kind="diffuse", albedo=(0.6, 0.55, 0.5))
+    d.add_shape(shapes.rectangle(), material=floor,
+                to_world=tf.translate([0, -1, 0])
+                @ tf.rotate([1, 0, 0], -90) @ tf.scale([6] * 3))
+    d.add_shape(shapes.sphere(16, 32), material=floor)
+    d.point_lights.append(builder.PointLight(position=[2.0, 3.0, 1.0],
+                                             intensity=[40.0, 38.0, 35.0]))
+    d.medium = builder.Medium(**{**FOG_POINT, **medium})
+    return d
+
+
+def fog_point_camera(cam_cls, tf, res):
+    """A res² camera at the recipe's ray origin (0, 1, 5), looking along
+    its mean direction (0, -0.1, -1), 45° fov."""
+    return cam_cls(res, res, 45.0, tf.look_at(
+        origin=[0, 1, 5], target=[0, 0.9, 4], up=[0, 1, 0]))
+
+
+def fog_scene(name, res, device=DEV):
+    """FOG_SCENES[name] compiled on `device`, and its res² camera."""
+    from mitsuba_tpu_torch.core import transform as tf
+    from mitsuba_tpu_torch.scene import builder, presets, shapes
+    from mitsuba_tpu_torch.sensor.sensor import PerspectiveCamera
+    kind, medium = FOG_SCENES[name]
+    if kind == "cornell":
+        return (builder.compile_scene(
+            fog_cornell_desc(builder, presets, **medium), device=device),
+            presets.cornell_camera(res, res))
+    return (builder.compile_scene(
+        fog_point_desc(builder, tf, shapes, **medium), device=device),
+        fog_point_camera(PerspectiveCamera, tf, res))
+
+
+def fog_exact(name, tables, cam, res, depth, rr, plain_cam):
+    """Phase 20's lane-by-lane checks on one fog scene at res²: mega_bounce
+    at FOG_BOUNCES from the plain wavefront, mega_path over one sample,
+    mega_persistent at FOG_PLAIN_SPP on plain_cam's FOG_PLAIN_RES²
+    pixels, each against its plain version bit for bit with the count
+    rows; returns their max abs errors and the plain versions' times."""
+    from mitsuba_tpu_torch.accel import megakernel as mk
+    from mitsuba_tpu_torch.integrator.path import initial_state
+    pix = torch.arange(res * res, dtype=torch.int32, device=DEV)
+    samp = torch.zeros_like(pix)
+    st0 = initial_state(*mk.primary_rays(cam, 0, pix, 0))
+    errs = {"mega_bounce": 0.0}
+    st = st0
+    for b in range(max(FOG_BOUNCES) + 1):
+        p = mk.bounce_plain(tables, rr, depth, st, pix, samp, 0, b)
+        if b in FOG_BOUNCES:
+            k = mk.run_bounce(tables, rr, depth, st, pix, samp, 0, b)
+            errs["mega_bounce"] = max(errs["mega_bounce"], compare_exact(
+                f"{name} mega_bounce, bounce {b}", k, p))
+        st = p[:16]
+    k = mk.run_path(tables, rr, depth, depth, st0, pix, samp, 0)
+    plain_path_ms, p = events_ms(lambda: mk.path_plain(
+        tables, rr, depth, depth, st0, pix, samp, 0))
+    errs["mega_path"] = compare_exact(f"{name} mega_path, one sample", k, p)
+    check(bool((k[17] <= k[16]).all()), f"{name}: shadow counts")
+    pix_p = torch.arange(FOG_PLAIN_RES ** 2, dtype=torch.int32, device=DEV)
+    pst = torch.cat([initial_state(*mk.primary_rays(plain_cam, 0, pix_p, 0)),
+                     torch.zeros((8, pix_p.shape[0]), device=DEV)])
+    k = mk.run_persistent(tables, rr, depth, FOG_PLAIN_SPP, plain_cam, pst,
+                          pix_p, torch.zeros_like(pix_p), 0)
+    plain_ms, p = events_ms(lambda: mk.persistent_plain(
+        tables, rr, depth, FOG_PLAIN_SPP, plain_cam, pst, pix_p,
+        torch.zeros_like(pix_p), 0))
+    errs["mega_persistent"] = compare_exact(
+        f"{name} mega_persistent, {FOG_PLAIN_RES}² x {FOG_PLAIN_SPP} spp",
+        k, p)
+    check(bool((k[17] == FOG_PLAIN_SPP).all()), f"{name}: spp not done")
+    return errs, {"mega_path": plain_path_ms, "mega_persistent": plain_ms,
+                  "ms_at_plain_shape": time_ms(lambda: mk.run_persistent(
+                      tables, rr, depth, FOG_PLAIN_SPP, plain_cam, pst,
+                      pix_p, torch.zeros_like(pix_p), 0), 3, warmup=1)}
+
+
+def eager_rate(label, scene, cam, film, integrator, card):
+    """render_fn at FOG_SPP with the trace kernel's launches counted:
+    (image, rays, launches), with rays/s and the busy share of a 1-spp
+    pass printed."""
+    from mitsuba_tpu_torch.accel import trace
+    from mitsuba_tpu_torch.render import render_fn
+    render_fn(scene, cam, film, integrator, spp=1, seed=0, device=DEV)
+    torch.cuda.synchronize()                                # (warm-up)
+    trace.reset_launches()
+    t0 = time.perf_counter()
+    img, n = render_fn(scene, cam, film, integrator, spp=FOG_SPP, seed=0,
+                       device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(trace.LAUNCHES)
+    print(f"[{label}] {film.width}², {FOG_SPP} spp: {wall:.3f} s, {int(n)} "
+          f"rays, {int(n) / wall:.6g} rays/s, mean {img.mean().item():.5f},"
+          f" trace launches {launches} ({card})", flush=True)
+    check(bool(torch.isfinite(img).all()), f"{label}: NaN/Inf")
+    check(all(v > 0 for v in launches.values()),
+          f"{label}: a trace kernel was not launched")
+    profile_pass(scene, cam, film, integrator, card)
+    return img, int(n), launches
+
+
+def fog_phases(card, kernels, guards):
+    """Phase 20: the homogeneous medium (FOG_SCENES) and the direct
+    integrator. Adds to the trace kernel's and the megakernels' entries of
+    `kernels` a "fog" object: launches on this phase's paths (the eager
+    VolPathTracer render for the trace kernel; render() with
+    MegaVolPathTracer, one timed render_persistent launch and the
+    bounce-by-bounce pass), the error against the plain version and the
+    times and bound on the fog Cornell box. guards: the Cornell 2048-spp
+    and lights 256-spp launch times of this run, printed beside
+    GUARD_BANDS for information (they fail nothing)."""
+    from mitsuba_tpu_torch.accel import megakernel as mk
+    from mitsuba_tpu_torch.core.math import SHADOW_EPSILON
+    from mitsuba_tpu_torch.film.film import Film
+    from mitsuba_tpu_torch.integrator.common import ray_mint
+    from mitsuba_tpu_torch.integrator.direct import DirectIntegrator
+    from mitsuba_tpu_torch.integrator.mega import (MegaPathTracer,
+                                                   MegaVolPathTracer,
+                                                   render_persistent)
+    from mitsuba_tpu_torch.integrator.path import initial_state
+    from mitsuba_tpu_torch.integrator.volpath import VolPathTracer
+    from mitsuba_tpu_torch.render import render_fn
+    from mitsuba_tpu_torch.scene.builder import compile_scene
+    from mitsuba_tpu_torch.scene.presets import cornell_box, cornell_camera
+
+    t_start = time.perf_counter()
+    depth, res = MAX_DEPTH, CORNELL_RES
+    out = {k["name"]: {} for k in kernels}
+    scene, cam = fog_scene("fog", res)
+    film = Film(res, res, "box")
+    check(MegaPathTracer.supports(scene) == (False, "participating medium"),
+          "MegaPathTracer accepts the medium")
+    ok, why = MegaVolPathTracer.supports(scene, cam, film)
+    check(ok, f"MegaVolPathTracer refuses the fog: {why}")
+    integ = MegaVolPathTracer.for_scene(scene, max_depth=depth)
+    tables, rr = integ.tables, integ.rr_depth
+    check(tables.ext and tables.medium is not None, "fog: no medium tables")
+    pix = torch.arange(res * res, dtype=torch.int32, device=DEV)
+    samp = torch.zeros_like(pix)
+    st0 = initial_state(*mk.primary_rays(cam, 0, pix, 0))
+    o0, d0 = st0[0:3].T.contiguous(), st0[3:6].T.contiguous()
+
+    # ---- 20. the trace kernel on the fog's camera rays and the shadow
+    # rays of its first bounce (from scatter points, with no offset) -----
+    errs = {"trace_closest": 0.0, "trace_any": 0.0}
+    primary = (o0, d0, ray_mint(o0), torch.full_like(o0[:, 0], 1e30), None)
+    _, in_med, ds, so, attempted = nee_rays(tables, st0, pix, samp, 0,
+                                            depth)
+    shadow = (so, ds.d, ray_mint(so), ds.dist * (1.0 - SHADOW_EPSILON),
+              attempted)
+    print(f"[fog] {int(in_med.sum())} of {pix.shape[0]} camera rays scatter "
+          f"before a surface; {int(shadow[4].sum())} shadow rays, "
+          f"{int((shadow[4] & in_med).sum())} from scatter points",
+          flush=True)
+    compare("fog primary", scene, *primary, errs)
+    compare("fog shadow", scene, *shadow, errs)
+    for name, any_hit, rays in (("trace_closest", False, primary),
+                                ("trace_any", True, shadow)):
+        out[name] = {"max_abs_err": errs[name],
+                     **measure(f"{name}, fog bounce 0", any_hit, scene,
+                               rays, 3, card)}
+
+    # ---- 20. every megakernel lane by lane on each fog scene ------------
+    for name in FOG_SCENES:
+        r = res if name == "fog" else FOG_VARIANT_RES
+        sc, cm = (scene, cam) if name == "fog" else fog_scene(name, r)
+        tb = tables if name == "fog" else \
+            MegaVolPathTracer.for_scene(sc, max_depth=depth).tables
+        e, plain = fog_exact(name, tb, cm, r, depth, rr,
+                             fog_scene(name, FOG_PLAIN_RES)[1])
+        for key, err in e.items():
+            out[key]["max_abs_err"] = max(out[key].get("max_abs_err", 0.0),
+                                          err)
+        if name == "fog":
+            fog_plain = plain
+        del sc, tb
+
+    # ---- 20. mega_bounce: one pass bounce by bounce (counted) ------------
+    mk.reset_launches()
+    st, counts = st0, torch.zeros_like(st0[:2])
+    for b in range(depth):
+        o = mk.run_bounce(tables, rr, depth, st, pix, samp, 0, b)
+        st, counts = o[:16], counts + o[16:18]
+    torch.cuda.synchronize()
+    launches = mk.LAUNCHES["mega_bounce"]
+    ref = mk.run_path(tables, rr, depth, depth, st0, pix, samp, 0)
+    check(launches == depth, f"fog mega_bounce launched {launches} times")
+    check(torch.equal(st, ref[:16]) and torch.equal(counts, ref[16:18]),
+          "fog: bounce-by-bounce pass differs from mega_path")
+    works, work_pass = pass_work(tables, st0, pix, samp, depth)
+    print(f"[fog] medium fp32 ops per lane: {medium_ops(tables)}",
+          flush=True)
+    out0 = mk.run_bounce(tables, rr, depth, st0, pix, samp, 0, 0)
+    out["mega_bounce"].update({
+        "launches": launches,
+        "ms": time_ms(lambda: mk.run_bounce(tables, rr, depth, st0, pix,
+                                            samp, 0, 0), 50),
+        "plain_ms": time_ms(lambda: mk.bounce_plain(
+            tables, rr, depth, st0, pix, samp, 0, 0), 3, warmup=1),
+        **mega_bound("fog mega_bounce, bounce 0", works[0],
+                     int(out0[16].sum()), int(out0[17].sum()), 0,
+                     pix.shape[0], 16, 18, tables, card)})
+
+    # ---- 20. the eager VolPathTracer (counted), render() with
+    # MegaVolPathTracer (counted) and render_persistent against it -------
+    img_e, n_e, trace_launches = eager_rate(
+        "fog eager VolPathTracer", scene, cam, film,
+        VolPathTracer(max_depth=depth), card)
+    for name in ("trace_closest", "trace_any"):
+        out[name]["launches"] = trace_launches[name]
+    mk.reset_launches()
+    img_m, n_m = render_fn(scene, cam, film, integ, spp=FOG_SPP, seed=0,
+                           device=DEV)
+    torch.cuda.synchronize()
+    launches = mk.LAUNCHES["mega_path"]
+    img_r, n_r = render_persistent(integ, cam, FOG_SPP, seed=0)
+    n_m, n_r = int(n_m), int(n_r)
+    print(f"[fog mega] {FOG_SPP} spp: render() {launches} mega_path "
+          f"launches, {n_m} rays (attempted shadow rays), render_persistent "
+          f"{n_r}; eager {n_e} (unoccluded); means "
+          f"{img_m.mean().item():.5f} / {img_r.mean().item():.5f} / "
+          f"{img_e.mean().item():.5f}", flush=True)
+    check(launches == FOG_SPP, f"fog mega_path launched {launches} times")
+    for img, label in ((img_m, "render() MegaVolPathTracer"),
+                       (img_r, "render_persistent")):
+        check(bool(torch.isfinite(img).all()), f"fog {label}: NaN/Inf")
+        image_rule(img, img_e, f"fog {label} vs eager, {FOG_SPP} spp")
+    check(n_m >= n_e and n_r >= n_e and n_m == n_r,
+          f"fog ray counts: attempted {n_m} / {n_r}, unoccluded {n_e}")
+    check(img_e.mean().item() < 0.1, "the fog does not attenuate")
+    k = mk.run_path(tables, rr, depth, depth, st0, pix, samp, 0)
+    out["mega_path"].update({
+        "launches": launches, "plain_ms": fog_plain["mega_path"],
+        "ms": time_ms(lambda: mk.run_path(tables, rr, depth, depth, st0, pix,
+                                          samp, 0), 20),
+        **mega_bound("fog mega_path, one sample", work_pass,
+                     int(k[16].sum()), int(k[17].sum()), 0, pix.shape[0],
+                     16, 18, tables, card)})
+
+    # ---- 20. one timed 256-spp mega_persistent launch (counted) ----------
+    pst = torch.cat([st0, torch.zeros_like(st0[:8])])
+    run_p = lambda: mk.run_persistent(tables, rr, depth, FOG_TIMED_SPP, cam,
+                                      pst, pix, samp, 0)
+    run_p()
+    mk.reset_launches()
+    ms, o = events_ms(run_p)
+    launches = mk.LAUNCHES["mega_persistent"]
+    rays = int(o[22].sum()) + int(o[23].sum())
+    check(launches == 1 and bool((o[17] == FOG_TIMED_SPP).all()),
+          "fog 256-spp launch")
+    check(bool(torch.isfinite(o[18:21]).all()), "fog persistent NaN/Inf")
+    print(f"[fog persistent] {res}², {FOG_TIMED_SPP} spp: one launch "
+          f"{ms:.4f} ms (CUDA events), {rays} rays, {rays / ms * 1e3:.6g} "
+          f"rays/s in the kernel, mean "
+          f"{(o[18:21] / FOG_TIMED_SPP).mean().item():.5f} ({card})",
+          flush=True)
+    out["mega_persistent"].update({
+        "launches": launches, "ms": ms,
+        "plain_ms": fog_plain["mega_persistent"],
+        "plain_shape": f"{FOG_PLAIN_RES}² lanes x {FOG_PLAIN_SPP} spp",
+        "ms_at_plain_shape": fog_plain["ms_at_plain_shape"],
+        **mega_bound(f"fog mega_persistent, {FOG_TIMED_SPP} spp", work_pass,
+                     int(o[22].sum()), int(o[23].sum()),
+                     FOG_TIMED_SPP * pix.shape[0], pix.shape[0], 24, 24,
+                     tables, card)})
+    del tables, integ
+
+    # ---- 20. the eager VolPathTracer and DirectIntegrator: card against
+    # CPU tensors, and DirectIntegrator's rays/s on the Cornell box -------
+    cornell = compile_scene(cornell_box(), device=DEV)
+    eager_rate("Cornell eager DirectIntegrator", cornell, cam, film,
+               DirectIntegrator(), card)
+    small = Film(FOG_CPU_RES, FOG_CPU_RES, "box")
+    cam_s = cornell_camera(FOG_CPU_RES, FOG_CPU_RES)
+    for label, (sc_card, sc_cpu), integrator in (
+            ("VolPathTracer", (fog_scene("fog", 1)[0],
+                               fog_scene("fog", 1, "cpu")[0]),
+             VolPathTracer(max_depth=depth)),
+            ("DirectIntegrator", (cornell, compile_scene(cornell_box(),
+                                                         device="cpu")),
+             DirectIntegrator(emitter_samples=2))):
+        img_k, n_k = render_fn(sc_card, cam_s, small, integrator,
+                               spp=FOG_CPU_SPP, seed=0, device=DEV)
+        img_c, n_c = render_fn(sc_cpu, cam_s, small, integrator,
+                               spp=FOG_CPU_SPP, seed=0, device="cpu")
+        print(f"[fog cpu] {label}, {FOG_CPU_RES}², {FOG_CPU_SPP} spp: card "
+              f"{int(n_k)} rays, CPU {int(n_c)}", flush=True)
+        image_rule(img_k.cpu(), img_c, f"{label} card vs CPU tensors")
+        check(abs(int(n_k) - int(n_c)) <= 1e-4 * int(n_c),
+              f"{label}: rays {int(n_k)} vs {int(n_c)}")
+    for key, value in guards.items():
+        lo, hi = GUARD_BANDS[key]
+        print(f"[guard] {key}: {value:.4f} ms; {lo}-{hi} ms in other calls "
+              f"before the medium branch ({value / lo - 1:+.1%} / "
+              f"{value / hi - 1:+.1%}); information only, "
+              f"scripts/ab_persistent.py compares builds in one call "
+              f"({card})", flush=True)
+    print(f"[fog] phase 20: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    for k in kernels:
+        if out[k["name"]]:
+            k["fog"] = out[k["name"]]
+
+
 def walk_phase(card, cases):
     """Phase 16: each build of WALK_VARIANTS in the turns of WALK_TURNS on
     the same inputs. cases["traces"]: name -> (scene, rays, any_hit), each
@@ -2157,6 +2613,11 @@ def main():
     join_variant_builds(*variant_builds)
     walk_phase(card, walk)
     lights_phases(card, kernels)
+    persist = next(k for k in kernels if k["name"] == "mega_persistent")
+    fog_phases(card, kernels, {
+        "cornell 2048 spp": sum(bench_out[s][0] for s in BENCH_SEEDS)
+        / len(BENCH_SEEDS),
+        "lights 256 spp": persist["lights_composites"]["ms"]})
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,9 +1,9 @@
 """Path-tracing megakernels: one bounce, whole paths, or a pixel's whole
-sample loop in one CUDA kernel (port of mitsuba_tpu/accel/megakernel.py
-for surface scenes: pinhole or thin-lens camera, flat or smooth shading
-normals, the 14 leaf BSDF families with the two-sided adapter, the
-composites over leaf children, area, point, spot and directional
-emitters and the constant environment; no medium or textures).
+sample loop in one CUDA kernel (port of mitsuba_tpu/accel/megakernel.py:
+pinhole or thin-lens camera, flat or smooth shading normals, the 14 leaf
+BSDF families with the two-sided adapter, the composites over leaf
+children, area, point, spot and directional emitters and the constant
+environment, and the global homogeneous medium; no textures).
 
 Three entry points share one device bounce (csrc/megakernel.cu):
 
@@ -14,14 +14,19 @@ Three entry points share one device bounce (csrc/megakernel.cu):
 
 Each runs the kernel for CUDA tensors and its plain version for CPU
 tensors; there is no fallback. The plain version of the bounce is
-MegaPlainTracer: the port's eager wavefront bounce (PathTracer(accel=
-"plain"), integrator/path.py) whose shading tail runs this module's
+MegaPlainTracer: the port's eager wavefront bounce (VolPathTracer(accel=
+"plain"), which is integrator/path.py's bounce with the medium's hooks)
+whose shading tail runs this module's
 plain versions of the JAX megakernel's device BSDF helpers
 (bsdf_eval_pdf, bsdf_sample) on the tables' material rows, the forms the
 kernel computes (with the composites, composite_eval_pdf and
 composite_sample), so kernel and plain version agree lane by lane; its
 NEE over every emitter type and the sky on escape are the eager ones
-(emitter/emitter.py), which the kernel follows op for op.
+(emitter/emitter.py), which the kernel follows op for op. When the
+tables carry a medium, its hooks (integrator/volpath.py) take the JAX
+megakernel's forms of the medium terms (medium_segment, hg_value,
+hg_sample_kernel); MegaPlainTracer counts attempted shadow rays, as the
+kernel does.
 `bounce_plain` is one call, `path_plain` loops it, and `persistent_plain`
 runs path_plain for every sample index and sums L and the counts, which
 is the persistent kernel's per-pixel estimate. The fused shade kernel
@@ -47,8 +52,9 @@ from ..bsdf import rtrans
 from ..bsdf.bsdf import COMPOSITE_FAMILIES, LEAF_FAMILIES as _LEAVES
 from ..bsdf.bsdf import BSDFSample
 from ..core.math import coordinate_system
-from ..core.warp import INV_PI, square_to_cosine_hemisphere
-from ..integrator.path import PathTracer, initial_state
+from ..core.warp import INV_FOUR_PI, INV_PI, square_to_cosine_hemisphere
+from ..integrator.path import initial_state
+from ..integrator.volpath import VolPathTracer
 from ..render import sample_camera
 from ..scene.scene import (MAT_ANISO_ROUGHDIFFUSE, MAT_COATING,
                            MAT_CONDUCTOR, MAT_DIELECTRIC, MAT_DIFFTRANS,
@@ -121,8 +127,10 @@ class MegaTables:
     m_real: int
     et_real: int             # real emissive-triangle rows (at least 1)
     env: int                 # the constant environment's emitter row, -1
-    ext: bool                # non-area emitters or composites: the
-                             # kernels' kExt instantiations
+    ext: bool                # non-area emitters, composites or a medium:
+                             # the kernels' kExt instantiations
+    medium: tuple | None     # the homogeneous medium's σt rgb, albedo
+                             # rgb, g, bound (float32 values), or None
     scene: SceneData
     plain_scene: SceneData
 
@@ -150,8 +158,10 @@ def _rough_plastic_rows(row):
     return out
 
 
-def build_mega_tables(scene: SceneData) -> MegaTables:
-    """The JAX build_mega_tables without its TPU layouts. Raises
+def build_mega_tables(scene: SceneData, medium=None) -> MegaTables:
+    """The JAX build_mega_tables without its TPU layouts; `medium`, the 8
+    floats of the JAX MegaVolPathTracer (σt rgb, albedo rgb, g, bound) or
+    None, compiles in the medium branch (rounded to float32 here). Raises
     NotImplementedError for textured materials, whose texture rows the
     port does not build."""
     mat_rows = to_numpy(scene.mat_params).astype(np.float32)
@@ -238,7 +248,10 @@ def build_mega_tables(scene: SceneData) -> MegaTables:
         m_real=mat.shape[0], et_real=max(et, 1),
         env=int(scene.env_id) if n_em else -1,
         ext=bool((meta[:n_em, 2] != EM_AREA).any()
-                 or np.isin(mat[:, 12], sorted(COMPOSITE_FAMILIES)).any()),
+                 or np.isin(mat[:, 12], sorted(COMPOSITE_FAMILIES)).any()
+                 or medium is not None),
+        medium=None if medium is None else tuple(
+            float(x) for x in np.asarray(medium, np.float32)),
         scene=scene,
         plain_scene=scene._replace(tri_attr=f32(corners)))
 
@@ -278,15 +291,31 @@ def primary_rays(camera, seed, pixel, samp):
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True, eq=False)
-class MegaPlainTracer(PathTracer):
-    """The megakernel bounce in PyTorch: PathTracer(accel="plain")'s
-    bounce on the tables' plain_scene, whose shading tail evaluates and
-    samples the BSDF through the device helpers' plain versions
-    (composite_eval_pdf, composite_sample: bsdf_eval_pdf and bsdf_sample
-    for leaf lanes) on the tables' material rows, with the two-sided flip
-    of wi's and wo's local z. It differs from PathTracer in rounding
-    only."""
+class MegaPlainTracer(VolPathTracer):
+    """The megakernel bounce in PyTorch: VolPathTracer(accel="plain")'s
+    bounce (PathTracer's, with the medium's hooks) on the tables'
+    plain_scene and medium, whose shading tail evaluates and samples the
+    BSDF through the device helpers' plain versions (composite_eval_pdf,
+    composite_sample: bsdf_eval_pdf and bsdf_sample for leaf lanes) on
+    the tables' material rows, with the two-sided flip of wi's and wo's
+    local z, and whose medium terms take the JAX megakernel's forms. It
+    differs from PathTracer and VolPathTracer in rounding only, and counts
+    attempted shadow rays."""
     tables: MegaTables | None = None
+    count_attempted = True
+
+    def _settle_medium(self, scene):
+        return self.tables.medium
+
+    def _segment(self, u, t_surf, active):
+        return medium_segment(self.medium, u, t_surf, active)
+
+    def _phase_value(self, d, wo):
+        cos = -((d[:, 0] * wo[:, 0] + d[:, 1] * wo[:, 1]) + d[:, 2] * wo[:, 2])
+        return hg_value(self.medium[6], cos)
+
+    def _phase_sample(self, d, u2):
+        return hg_sample_kernel(self.medium[6], d, u2)
 
     def _rows(self, v):
         """(top, child A, child B) material rows of the vertex's lanes."""
@@ -314,6 +343,84 @@ class MegaPlainTracer(PathTracer):
         return BSDFSample(torch.stack([nwx, nwy, nwz * fsign], -1),
                           torch.stack([w_r, w_g, w_b], -1), pdf, is_delta,
                           eta)
+
+
+# ---------------------------------------------------------------------------
+# the medium terms in the JAX megakernel's forms (_bounce_rows :665-700,
+# :1098-1112, :1119-1127, :1307-1371), which csrc/megakernel.cu computes op
+# for op: per-channel exponents, the channel means as (a + b + c)·(1/3),
+# the segment weight blended by the 0/1 medium flag, the HG value and
+# sample with the constants of g in float32 arithmetic, as the kernel
+# computes them, the sample in coordinate_system(d)'s frame. A constant
+# over a tensor is divided as a full tensor (a Python scalar over a
+# tensor is a reciprocal times the scalar in PyTorch).
+# ---------------------------------------------------------------------------
+
+def medium_segment(medium, u, t_surf, active):
+    """Balance distance sampling (:665-700): (sampled [N] bool, t [N],
+    the segment weight [N, 3], σs·Tr(t)/pdfSuccess on active sampled lanes
+    and Tr(ts)/pdfFailure on the others, blended as imf·a + (1-imf)·b)."""
+    sigma_t = torch.tensor(medium[0:3], dtype=t_surf.dtype,
+                           device=t_surf.device)
+    sigma_s = sigma_t * torch.tensor(medium[3:6], dtype=t_surf.dtype,
+                                     device=t_surf.device)
+    ch = torch.clamp((u[:, 0] * 3.0).to(torch.int64), max=2)
+    sig_c = torch.clamp(sigma_t[ch], min=1e-8)
+    t = -torch.log1p(-torch.clamp(u[:, 1], 0.0, 1.0 - 1e-7)) / sig_c
+    seg_end = torch.clamp(t_surf, max=medium[7])
+    sampled = t < seg_end
+    tt = torch.exp(-torch.clamp(sigma_t * t[:, None], max=80.0))
+    ts = torch.exp(-torch.clamp(sigma_t * seg_end[:, None], max=80.0))
+    a = sigma_t * tt
+    third = 1.0 / 3.0
+    pdf_succ = torch.clamp(((a[:, 0] + a[:, 1]) + a[:, 2]) * third,
+                           min=1e-20)
+    pdf_fail = torch.clamp(((ts[:, 0] + ts[:, 1]) + ts[:, 2]) * third,
+                           min=1e-20)
+    imf = (active & sampled).to(t.dtype)[:, None]
+    w = (imf * (sigma_s * tt / pdf_succ[:, None])
+         + (1.0 - imf) * (ts / pdf_fail[:, None]))
+    return sampled, t, w
+
+
+def _g_consts(g):
+    """float32 constants of the HG asymmetry g: 1 + g², 2g, 1 - g², 1 - g
+    and (1/4π)(1 - g²)."""
+    g = np.float32(g)
+    one = np.float32(1.0)
+    g2 = g * g
+    return (float(one + g2), float(np.float32(2.0) * g), float(one - g2),
+            float(one - g), float(np.float32(INV_FOUR_PI) * (one - g2)))
+
+
+def hg_value(g, cos):
+    """The HG value at cos = -(d·wo) (:1098-1112, :1336-1339):
+    inv4pi·(1 - g²) / (den·sqrt(den)), den = max(1 + g² + 2g·cos, 1e-8)."""
+    c1, two_g, _, _, num = _g_consts(g)
+    den = torch.clamp(two_g * cos + c1, min=1e-8)
+    return torch.full_like(den, num) / (den * torch.sqrt(den))
+
+
+def hg_sample_kernel(g, d, u2):
+    """The HG continuation (:1307-1371): cosθ by the exact inverse CDF
+    (1 - 2u below |g| = 1e-4, a choice of the launch), the azimuth 2π·u,
+    the direction in coordinate_system(d)'s frame about d. Returns
+    (wo [N, 3], pdf [N])."""
+    u0, u1 = u2[:, 0], u2[:, 1]
+    c1, two_g, one_m_g2, one_m_g, _ = _g_consts(g)
+    if abs(np.float32(g)) < 1e-4:
+        cos_t = torch.clamp(1.0 - 2.0 * u0, -1.0, 1.0)
+    else:
+        sqr = torch.full_like(u0, one_m_g2) / (two_g * u0 + one_m_g)
+        cos_t = torch.clamp((c1 - sqr * sqr) / torch.full_like(u0, two_g),
+                            -1.0, 1.0)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = (2.0 * math.pi) * u1
+    s, t = coordinate_system(d)
+    sc, ss = sin_t * torch.cos(phi), sin_t * torch.sin(phi)
+    wo = (sc[:, None] * s + ss[:, None] * t) + cos_t[:, None] * d
+    cos_pdf = -((d[:, 0] * wo[:, 0] + d[:, 1] * wo[:, 1]) + d[:, 2] * wo[:, 2])
+    return wo, hg_value(g, cos_pdf)
 
 
 def _plain(tables: MegaTables, max_depth, rr_depth):
@@ -1314,7 +1421,8 @@ _TABLE_ARGS = ([ctypes.c_void_p, ctypes.c_void_p,        # woop aabb
                + [ctypes.c_void_p, ctypes.c_void_p]      # attr mat
                + [ctypes.c_void_p, ctypes.c_int]         # em_rows et_real
                + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]  # meta cdf E
-               + [ctypes.c_int, ctypes.c_int])           # env ext
+               + [ctypes.c_int, ctypes.c_int]            # env ext
+               + [ctypes.c_void_p])                      # medium (host)
 
 
 def _library():
@@ -1348,7 +1456,8 @@ def _launch(name, tables: MegaTables, state, rows_in, rows_out, pixel,
             samp, seed, ints, extra=(), ext=False):
     """Check the inputs, allocate the output and launch entry `name` on
     PyTorch's current stream, in the kExt instantiation when the tables
-    (or `ext`) ask for it; raises on a refused launch."""
+    (or `ext`) ask for it, with the tables' medium (8 host floats, or a
+    null pointer); raises on a refused launch."""
     dev = state.device
     n = state.shape[1]
     check = trace.check_tensor
@@ -1369,6 +1478,8 @@ def _launch(name, tables: MegaTables, state, rows_in, rows_out, pixel,
     check(tables.em_cdf, "em_cdf", torch.float32,
           (max(tables.em_count, 1) + 1,), dev)
     out = torch.empty((rows_out, n), dtype=torch.float32, device=dev)
+    med = None if tables.medium is None else \
+        (ctypes.c_float * 8)(*tables.medium)
     fn = getattr(_library(), f"mitsuba_{name}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1378,6 +1489,7 @@ def _launch(name, tables: MegaTables, state, rows_in, rows_out, pixel,
                  tables.et_real, tables.em_meta.data_ptr(),
                  tables.em_cdf.data_ptr(),
                  tables.em_count, tables.env, int(tables.ext or ext),
+                 None if med is None else ctypes.addressof(med),
                  state.data_ptr(), out.data_ptr(),
                  pixel.data_ptr(), samp.data_ptr(), n,
                  seed & 0xFFFFFFFF, *ints, *extra, stream)

@@ -29,7 +29,13 @@ def _check_supported(a: dict):
     if np.any(np.asarray(a["em_type"]) == S.EM_ENVMAP):
         problems.append("envmap emitters")
     if bool(np.asarray(a["has_medium"])):
-        problems.append("media")
+        # a homogeneous medium only: a one-voxel grid and all-zero SGGX
+        # and fiber rows (the JAX megakernel gate, integrator/mega.py)
+        if np.asarray(a["med_grid"]).size != 1:
+            problems.append("heterogeneous medium")
+        if any(a.get(k) is not None and np.any(np.asarray(a[k]))
+               for k in ("med_sggx", "med_fiber")):
+            problems.append("anisotropic (SGGX/fiber) medium")
     if problems:
         raise NotImplementedError(f"scene uses features not ported: "
                                   f"{problems}")

@@ -7,15 +7,21 @@
 // make_bounce_kernel (:1395, launched by run_bounce :1511),
 // make_path_kernel (:1423, run_path :1552) and make_persistent_kernel
 // (:2478, run_persistent :2661), whose shared body is _bounce_rows
-// (:606-1384), for surface scenes: pinhole or thin-lens camera, flat or
-// smooth shading normals, the 14 leaf BSDF families of bsdf_common.cuh
-// with the two-sided adapter and its composites over leaf children, area,
-// point, spot and directional emitters and the constant environment,
-// without medium or textures. Each kernel is a template on kExt: the
-// instantiation without it has the area emitters, leaf families and
-// pinhole only, so scenes that need no more run the code (and the
-// registers) they ran before; the launch picks kExt from the tables
-// (MegaTables.ext) or the camera's aperture.
+// (:606-1384): pinhole or thin-lens camera, flat or smooth shading
+// normals, the 14 leaf BSDF families of bsdf_common.cuh with the
+// two-sided adapter and its composites over leaf children, area, point,
+// spot and directional emitters and the constant environment, and the
+// global homogeneous medium, without textures. Each kernel is a template
+// on kExt: the instantiation without it has the area emitters, leaf
+// families and pinhole only, so scenes that need no more run the code
+// (and the registers) they ran before; the launch picks kExt from the
+// tables (MegaTables.ext) or the camera's aperture. The medium is a
+// branch of the kExt instantiations, taken when the tables carry one
+// (Tables.med): each bounce samples a scatter distance against the
+// surface's, and a lane that scatters takes HG-phase NEE and an HG
+// continuation from the scatter point (VolPathTracer's bounce, with the
+// JAX megakernel's forms of the medium terms: accel/megakernel.py
+// medium_segment, hg_value, hg_sample_kernel).
 //
 // Design: one thread per lane. The path state lives in registers for the
 // whole launch; scene tables (per-triangle attributes, materials, emitter
@@ -90,6 +96,7 @@ constexpr int kEmMeta = 16;   // emitter row
 constexpr uint32_t kSensorDims = 4, kDimsPerBounce = 8;
 constexpr uint32_t kDimNeeSel = 0, kDimNeePos = 1, kDimBsdfU2 = 2;
 constexpr uint32_t kDimBsdfU1 = 3, kDimRR = 4, kDimPixel = 0;
+constexpr uint32_t kDimMedium = 5, kDimPhase = 6;
 constexpr uint32_t kDimAperture = 1;
 // emitter type codes (scene/scene.py)
 constexpr float kEmArea = 0.f, kEmPoint = 1.f, kEmConstant = 2.f;
@@ -108,6 +115,9 @@ struct Tables {
   const float* em_cdf;    // [E+1]
   int n_em;
   int env;                // the constant environment's emitter row, or -1
+  bool med;               // a homogeneous medium fills the scene
+  V3 med_st, med_al;      // its σt and albedo rgb
+  float med_g, med_bound;  // HG asymmetry, extent along a ray
 };
 
 struct Camera {           // megakernel.py camera_consts
@@ -221,6 +231,44 @@ __device__ __forceinline__ DirectSample sample_direct(const Tables& T, V3 p,
   return ds;
 }
 
+// ---- the homogeneous medium (accel/megakernel.py medium_segment,
+// hg_value, hg_sample_kernel) ----------------------------------------------
+
+// Tr = exp(-min(σt·d, 80)) per channel
+__device__ __forceinline__ V3 med_tr(V3 st, float d) {
+  return V3{expf(-clamp_max(st.x * d, 80.f)), expf(-clamp_max(st.y * d, 80.f)),
+            expf(-clamp_max(st.z * d, 80.f))};
+}
+
+// The HG value at cos = -(d·wo): (1/4π)(1 - g²) / (den·sqrt(den))
+__device__ __forceinline__ float hg_value(float g, float cos) {
+  const float den = clamp_min((2.f * g) * cos + (1.f + g * g), F32(1e-8));
+  return (F32(1.0 / (4.0 * kPi)) * (1.f - g * g)) / (den * sqrtf(den));
+}
+
+// The HG continuation about d: the exact inverse CDF (1 - 2u below
+// |g| = 1e-4), the direction in coordinate_system(d)'s frame, its pdf.
+__device__ __forceinline__ V3 hg_sample(float g, V3 d, float2 u, float& pdf) {
+  float cos_t;
+  if (static_cast<double>(fabsf(g)) < 1e-4) {
+    cos_t = 1.f - 2.f * u.x;
+  } else {
+    const float sqr = (1.f - g * g) / ((2.f * g) * u.x + (1.f - g));
+    cos_t = ((1.f + g * g) - sqr * sqr) / (2.f * g);
+  }
+  cos_t = clamp_max(clamp_min(cos_t, -1.f), 1.f);
+  const float sin_t = sqrtf(clamp_min(1.f - cos_t * cos_t, 0.f));
+  const float phi = F32(2.0 * kPi) * u.y;
+  V3 s, t;
+  coordinate_system(d, s, t);
+  const float sc = sin_t * cosf(phi), ss = sin_t * sinf(phi);
+  const V3 wo{(sc * s.x + ss * t.x) + cos_t * d.x,
+              (sc * s.y + ss * t.y) + cos_t * d.y,
+              (sc * s.z + ss * t.z) + cos_t * d.z};
+  pdf = hg_value(g, -((d.x * wo.x + d.y * wo.y) + d.z * wo.z));
+  return wo;
+}
+
 // What a bounce carries from its closest hit across the shadow trace.
 // (Under kExt M may be a composite, whose children the helpers of
 // bsdf_common.cuh read from the table.)
@@ -228,7 +276,9 @@ struct Vertex {
   V3 p, ng, ns, fs, ft, wi;
   const float* M;           // the hit's material row
   float fsign, wiz;         // the two-sided flip and the flipped wi.z
-  bool hit;
+  bool hit;                 // the ray hit a surface
+  bool in_med;              // it scattered in the medium before it
+  V3 pe;                    // the scatter point (in_med)
   DirectSample ds;          // the NEE sample toward a light
   float f[3], pdf_fwd;      // the BSDF toward it
   V3 so;                    // its shadow ray's origin (when traced)
@@ -264,9 +314,41 @@ __device__ __forceinline__ Vertex bounce_front(const Tables& T, State& s,
   v.p = V3{s.o.x + t_safe * s.d.x, s.o.y + t_safe * s.d.y,
            s.o.z + t_safe * s.d.z};
 
+  // ---- the medium: balance distance sampling over the segment to the
+  // surface; the throughput takes σs·Tr(t)/pdfSuccess where the lane
+  // scatters, Tr(ts)/pdfFailure where it does not ---------------------------
+  v.in_med = false;
+  if (kExt && T.med) {
+    const float2 um = rng2(seed, pixel, dim + kDimMedium, samp);
+    const V3 st = T.med_st;
+    const int ch = min(static_cast<int>(um.x * 3.f), 2);
+    const float sig_c = clamp_min(ch == 0 ? st.x : (ch == 1 ? st.y : st.z),
+                                  F32(1e-8));
+    const float t =
+        -log1pf(-clamp_max(clamp_min(um.y, 0.f), F32(1.0 - 1e-7))) / sig_c;
+    const float seg = clamp_max(v.hit ? h.t : 1e30f, T.med_bound);
+    v.in_med = t < seg;
+    const V3 tt = med_tr(st, t), ts = med_tr(st, seg);
+    const float third = F32(1.0 / 3.0);
+    const float pdf_succ = clamp_min(
+        ((st.x * tt.x + st.y * tt.y) + st.z * tt.z) * third, F32(1e-20));
+    const float pdf_fail = clamp_min(((ts.x + ts.y) + ts.z) * third,
+                                     F32(1e-20));
+    const float imf = v.in_med ? 1.f : 0.f;
+    const V3 al = T.med_al;
+    s.tp = V3{s.tp.x * (imf * (((st.x * al.x) * tt.x) / pdf_succ)
+                        + (1.f - imf) * (ts.x / pdf_fail)),
+              s.tp.y * (imf * (((st.y * al.y) * tt.y) / pdf_succ)
+                        + (1.f - imf) * (ts.y / pdf_fail)),
+              s.tp.z * (imf * (((st.z * al.z) * tt.z) / pdf_succ)
+                        + (1.f - imf) * (ts.z / pdf_fail))};
+    v.pe = V3{s.o.x + t * s.d.x, s.o.y + t * s.d.y, s.o.z + t * s.d.z};
+  }
+  const bool surf = v.hit && !v.in_med;   // a surface event
+
   // ---- an escaped ray sees the constant environment (eval_env,
   // pdf_direct_env) ------------------------------------------------------
-  if (kExt && !v.hit && T.env >= 0) {
+  if (kExt && !v.hit && !v.in_med && T.env >= 0) {
     const float* env = T.em_meta + T.env * kEmMeta;
     const float pdf_env = F32(1.0 / (4.0 * kPi)) * __ldg(env + 1);
     const float w = s.prev_delta > 0.5f ? 1.f : mis_power(s.prev_pdf, pdf_env);
@@ -276,7 +358,7 @@ __device__ __forceinline__ Vertex bounce_front(const Tables& T, State& s,
   }
 
   // ---- emitter hit on a surface (eval_area, pdf_direct_area) ----------
-  if (v.hit) {
+  if (surf) {
     const float cos_surf = -dot3(s.d, v.ng);
     const bool em_ok = em_id >= 0;
     const bool front = em_ok && cos_surf > 0.f;
@@ -300,22 +382,31 @@ __device__ __forceinline__ Vertex bounce_front(const Tables& T, State& s,
   v.fsign = __ldg(v.M + 15) > 0.5f && v.wi.z < 0.f ? -1.f : 1.f;
   v.wiz = v.wi.z * v.fsign;
 
-  // ---- next-event estimation ------------------------------------------
-  const bool nee_allowed = v.hit && depth + 1 <= max_depth + 1;
+  // ---- next-event estimation from the event point (the scatter point
+  // or the hit) -------------------------------------------------------------
+  const bool nee_allowed = (v.hit || v.in_med) && depth + 1 <= max_depth + 1;
   const float u_sel = rng2(seed, pixel, dim + kDimNeeSel, samp).x;
   const float2 u_pos = rng2(seed, pixel, dim + kDimNeePos, samp);
-  v.ds = sample_direct<kExt>(T, v.p, u_sel, u_pos);
+  v.ds = sample_direct<kExt>(T, v.in_med ? v.pe : v.p, u_sel, u_pos);
   v.shadow = nee_allowed && v.ds.pdf > 0.f;
-  const V3 wo = to_local(v.fs, v.ft, v.ns, v.ds.d);
-  if (kExt)
-    mitsuba_bsdf::mat_eval(T.mat, kMat, v.M, v.wi.x, v.wi.y, v.wiz, wo.x,
-                           wo.y, wo.z * v.fsign, v.f, v.pdf_fwd);
-  else
-    bsdf_eval_pdf<true>(v.M, v.wi.x, v.wi.y, v.wiz, wo.x, wo.y,
-                        wo.z * v.fsign, v.f, v.pdf_fwd);
+  if (kExt && v.in_med) {     // the phase function toward the light
+    const V3 l = v.ds.d;
+    v.f[0] = v.f[1] = v.f[2] = v.pdf_fwd =
+        hg_value(T.med_g, -((s.d.x * l.x + s.d.y * l.y) + s.d.z * l.z));
+  } else {
+    const V3 wo = to_local(v.fs, v.ft, v.ns, v.ds.d);
+    if (kExt)
+      mitsuba_bsdf::mat_eval(T.mat, kMat, v.M, v.wi.x, v.wi.y, v.wiz, wo.x,
+                             wo.y, wo.z * v.fsign, v.f, v.pdf_fwd);
+    else
+      bsdf_eval_pdf<true>(v.M, v.wi.x, v.wi.y, v.wiz, wo.x, wo.y,
+                          wo.z * v.fsign, v.f, v.pdf_fwd);
+  }
   v.contributes = v.shadow && (v.f[0] > 0.f || v.f[1] > 0.f || v.f[2] > 0.f);
-  // shadow ray over [eps, dist * (1 - ShadowEpsilon)] (scene.cpp:846)
-  v.so = v.contributes ? offset_ray_origin(v.p, v.ng, v.ds.d) : v.p;
+  // shadow ray over [eps, dist * (1 - ShadowEpsilon)] (scene.cpp:846), from
+  // the scatter point itself in the medium
+  v.so = !v.contributes ? v.p
+         : (v.in_med ? v.pe : offset_ray_origin(v.p, v.ng, v.ds.d));
   return v;
 }
 
@@ -335,26 +426,40 @@ __device__ __forceinline__ void bounce_back(const Tables& T, const Vertex& v,
   if (v.contributes && !occluded) {
     const float w = kExt && v.ds.delta ? 1.f
                                        : mis_power(v.ds.pdf, v.pdf_fwd);
-    s.L = V3{s.L.x + ((s.tp.x * v.ds.value.x) * v.f[0]) * w,
-             s.L.y + ((s.tp.y * v.ds.value.y) * v.f[1]) * w,
-             s.L.z + ((s.tp.z * v.ds.value.z) * v.f[2]) * w};
+    V3 c{(s.tp.x * v.ds.value.x) * v.f[0], (s.tp.y * v.ds.value.y) * v.f[1],
+         (s.tp.z * v.ds.value.z) * v.f[2]};
+    if (kExt && T.med) {   // the medium's transmittance over min(d, bound)
+      const V3 tr = med_tr(T.med_st, clamp_max(v.ds.dist, T.med_bound));
+      c = V3{c.x * tr.x, c.y * tr.y, c.z * tr.z};
+    }
+    s.L = V3{s.L.x + c.x * w, s.L.y + c.y * w, s.L.z + c.z * w};
   }
 
-  // ---- BSDF sampling → next ray ------------------------------------------
-  const float2 ub = rng2(seed, pixel, dim + kDimBsdfU2, samp);
-  const float uc = rng2(seed, pixel, dim + kDimBsdfU1, samp).x;
-  const BsdfSample bs =
-      kExt ? mitsuba_bsdf::mat_sample(T.mat, kMat, v.M, v.wi.x, v.wi.y, v.wiz,
-                                      ub.x, ub.y, uc)
-           : bsdf_sample<true>(v.M, v.wi.x, v.wi.y, v.wiz, ub.x, ub.y, uc);
-  const V3 wn{bs.wo[0], bs.wo[1], bs.wo[2] * v.fsign};   // un-flip
-  const V3 fs = v.fs, ft = v.ft, ns = v.ns;
-  const V3 d_next{(fs.x * wn.x + ft.x * wn.y) + ns.x * wn.z,
-                  (fs.y * wn.x + ft.y * wn.y) + ns.y * wn.z,
-                  (fs.z * wn.x + ft.z * wn.y) + ns.z * wn.z};
-  const V3 o_next = offset_ray_origin(v.p, v.ng, d_next);
+  // ---- continuation: BSDF sampling, or HG in the medium -------------------
+  BsdfSample bs;
+  V3 d_next, o_next;
+  if (kExt && v.in_med) {   // from the scatter point; weight eval/pdf = 1
+    d_next = hg_sample(T.med_g, s.d, rng2(seed, pixel, dim + kDimPhase, samp),
+                       bs.pdf);
+    o_next = v.pe;
+    bs.w[0] = bs.w[1] = bs.w[2] = bs.eta = 1.f;
+    bs.delta = false;
+  } else {
+    const float2 ub = rng2(seed, pixel, dim + kDimBsdfU2, samp);
+    const float uc = rng2(seed, pixel, dim + kDimBsdfU1, samp).x;
+    bs = kExt ? mitsuba_bsdf::mat_sample(T.mat, kMat, v.M, v.wi.x, v.wi.y,
+                                         v.wiz, ub.x, ub.y, uc)
+              : bsdf_sample<true>(v.M, v.wi.x, v.wi.y, v.wiz, ub.x, ub.y, uc);
+    const V3 wn{bs.wo[0], bs.wo[1], bs.wo[2] * v.fsign};   // un-flip
+    const V3 fs = v.fs, ft = v.ft, ns = v.ns;
+    d_next = V3{(fs.x * wn.x + ft.x * wn.y) + ns.x * wn.z,
+                (fs.y * wn.x + ft.y * wn.y) + ns.y * wn.z,
+                (fs.z * wn.x + ft.z * wn.y) + ns.z * wn.z};
+    o_next = offset_ray_origin(v.p, v.ng, d_next);
+  }
   V3 tn{s.tp.x * bs.w[0], s.tp.y * bs.w[1], s.tp.z * bs.w[2]};
-  bool alive = v.hit && bs.pdf > 0.f && any_pos(tn) && depth <= max_depth;
+  bool alive = (v.hit || v.in_med) && bs.pdf > 0.f && any_pos(tn)
+               && depth <= max_depth;
 
   // ---- Russian roulette (path.cpp:278-289) ------------------------------
   s.eta = s.eta * bs.eta;
@@ -607,10 +712,13 @@ mega_persistent(Tables T, const float* __restrict__ in,
   o[23 * n] = n_shadow;
 }
 
+// med: a host array of the medium's 8 floats (σt rgb, albedo rgb, g,
+// bound), or null
 Tables make_tables(const void* woop, const void* aabb, int n_clusters,
                    int n_tris, const void* attr, const void* mat,
                    const void* em_rows, int et_real, const void* em_meta,
-                   const void* em_cdf, int n_em, int env) {
+                   const void* em_cdf, int n_em, int env, const void* med) {
+  const float* m = static_cast<const float*>(med);
   return Tables{static_cast<const float4*>(woop),
                 static_cast<const float*>(aabb),
                 mitsuba_walk::walk_tris(n_tris, n_clusters),
@@ -618,7 +726,10 @@ Tables make_tables(const void* woop, const void* aabb, int n_clusters,
                 static_cast<const float*>(mat),
                 static_cast<const float*>(em_rows), et_real,
                 static_cast<const float*>(em_meta),
-                static_cast<const float*>(em_cdf), n_em, env};
+                static_cast<const float*>(em_cdf), n_em, env, m != nullptr,
+                m ? V3{m[0], m[1], m[2]} : V3{0.f, 0.f, 0.f},
+                m ? V3{m[3], m[4], m[5]} : V3{0.f, 0.f, 0.f},
+                m ? m[6] : 0.f, m ? m[7] : 0.f};
 }
 
 constexpr int kThreads = 128;
@@ -626,18 +737,20 @@ constexpr int kThreads = 128;
 }  // namespace
 
 // C entry points (ctypes, accel/megakernel.py). Pointers are device
-// pointers except `cam`, a host array of 18 floats; n_tris is the count
-// of real triangles (the table's padding follows them); env is the
-// constant environment's emitter row (-1: none); ext picks the kExt
-// instantiations (MegaTables.ext, or a thin lens); each launches on
-// `stream` and returns the cudaError_t of the launch.
+// pointers except `cam`, a host array of 18 floats, and `med`, a host
+// array of the medium's 8 floats or null; n_tris is the count of real
+// triangles (the table's padding follows them); env is the constant
+// environment's emitter row (-1: none); ext picks the kExt instantiations
+// (MegaTables.ext: set with a medium too, or a thin lens); each launches
+// on `stream` and returns the cudaError_t of the launch.
 #define MEGA_TABLE_PARAMS                                                     \
   const void *woop, const void *aabb, int n_clusters, int n_tris,             \
       const void *attr, const void *mat, const void *em_rows, int et_real,    \
-      const void *em_meta, const void *em_cdf, int n_em, int env, int ext
+      const void *em_meta, const void *em_cdf, int n_em, int env, int ext,    \
+      const void *med
 #define MEGA_TABLES                                                          \
   make_tables(woop, aabb, n_clusters, n_tris, attr, mat, em_rows, et_real,   \
-              em_meta, em_cdf, n_em, env)
+              em_meta, em_cdf, n_em, env, med)
 // the instantiation of `kernel` for the walk coop_walk picks and ext
 #define MEGA_WALK(kernel, tables)                                            \
   (mitsuba_walk::coop_walk((tables).tris)                                    \

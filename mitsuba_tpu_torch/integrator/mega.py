@@ -6,17 +6,18 @@ pinhole or thin-lens perspective camera, flat or smooth shading normals,
 the 14 leaf BSDF families (isotropic GGX where microfacet) with the
 two-sided adapter, the mixture, blend, mask, coating and rough-coating
 composites over leaf children, area, point, spot and directional
-emitters and at most one constant environment, no medium, no textures,
-box film: the JAX gate, less its procedural textures. `supports()`
+emitters and at most one constant environment, no textures, box film:
+the JAX gate, less its procedural textures. MegaVolPathTracer adds the
+global homogeneous medium (VolPathTracer's estimator). `supports()`
 reports whether a scene qualifies; `for_scene(scene, ...)` packs the
 scene tables once. On CUDA
 tensors li_stats runs whole paths in one launch of the mega_path kernel and
 render_persistent renders every pixel's spp paths in one launch of
 mega_persistent; on CPU tensors both run the plain versions
-(accel/megakernel.py). Estimator and sample streams are PathTracer's.
+(accel/megakernel.py). Estimator and sample streams are PathTracer's
+(VolPathTracer's for MegaVolPathTracer).
 
-Not ported yet: procedural textures, MegaVolPathTracer (the homogeneous
-medium branch) and render_persistent_sharded.
+Not ported yet: procedural textures and render_persistent_sharded.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from ..scene import scene as S
 from ..scene.scene import SceneData
 from ..sensor.sensor import PerspectiveCamera
 from .path import PathTracer, initial_state
+from .volpath import scene_medium
 
 # the JAX package's megakernel limits (MEGA_FAMILIES, MEGA_EM_TYPES and
 # the VMEM triangle budget), kept so supports() refuses what it refuses
@@ -57,15 +59,15 @@ class MegaPathTracer(PathTracer):
     tables: MegaTables | None = None
 
     @staticmethod
-    def supports(scene: SceneData, camera=None, film=None
-                 ) -> tuple[bool, str]:
+    def supports(scene: SceneData, camera=None, film=None,
+                 allow_medium=False) -> tuple[bool, str]:
         """(ok, reason): can this scene, camera and film run on the
-        megakernel with results matching PathTracer and a box-filter
-        Film? Where the JAX package refuses a scene this refuses it too,
-        with the JAX reason; where the JAX package accepts a feature the
-        port lacks, the reason is "<feature> not ported". The JAX
-        arguments allow_medium and tex_procs belong to parts not ported
-        (the medium branch, procedural textures)."""
+        megakernel with results matching PathTracer (VolPathTracer when
+        allow_medium admits a homogeneous medium) and a box-filter Film?
+        Where the JAX package refuses a scene this refuses it too, with
+        the JAX reason; where the JAX package accepts a feature the port
+        lacks, the reason is "<feature> not ported". The JAX argument
+        tex_procs belongs to a part not ported (procedural textures)."""
         em_types = [int(t) for t in to_numpy(scene.em_type)]
         bad = set(em_types) - _REF_EM_TYPES
         if em_types.count(S.EM_CONSTANT) > 1 or bad:
@@ -99,7 +101,14 @@ class MegaPathTracer(PathTracer):
             if (rows[:, 11] != 1).any() or aniso:
                 return False, f"non-GGX/anisotropic {name}"
         if bool(to_numpy(scene.has_medium)):
-            return False, "participating medium"
+            if not allow_medium:
+                return False, "participating medium"
+            if scene.med_grid.numel() != 1:
+                return False, "heterogeneous medium"
+            # the builder stores all-zero rows for isotropic media
+            if any(x is not None and bool((x != 0).any())
+                   for x in (scene.med_sggx, scene.med_fiber)):
+                return False, "anisotropic (SGGX/fiber) medium"
         if (to_numpy(scene.mat_tex) >= 0).any() or (mp[:, 16] >= 0).any():
             return False, ("textured material (procedural checker/grid "
                            "textures not ported)")
@@ -122,9 +131,14 @@ class MegaPathTracer(PathTracer):
         with supports()'s reason, for a scene outside the subset."""
         ok, reason = cls.supports(scene)
         if not ok:
-            raise NotImplementedError(f"MegaPathTracer: {reason}")
+            raise NotImplementedError(f"{cls.__name__}: {reason}")
         return cls(max_depth=max_depth, rr_depth=rr_depth,
-                   tables=build_mega_tables(scene))
+                   tables=build_mega_tables(scene, cls._medium(scene)))
+
+    @staticmethod
+    def _medium(scene):
+        """The medium the tables compile in: none for MegaPathTracer."""
+        return None
 
     def li(self, scene: SceneData, o, d, seed, pixel_id, sample_idx=0):
         return self.li_stats(scene, o, d, seed, pixel_id, sample_idx)[0]
@@ -144,6 +158,26 @@ class MegaPathTracer(PathTracer):
                        pixel_id.to(torch.int32).contiguous(), samp, seed)
         n_rays = out[16:18].to(torch.int64).sum()
         return out[9:12].T, n_rays
+
+
+@dataclass(frozen=True, eq=False)
+class MegaVolPathTracer(MegaPathTracer):
+    """The megakernels with the global homogeneous medium (balance
+    distance sampling and the HG phase, ref volpath.cpp:104-181) compiled
+    in: VolPathTracer's estimator and sample streams, lane by lane. Its
+    ray counts count ATTEMPTED NEE shadow rays, like PathTracer's;
+    VolPathTracer.li_stats counts unoccluded ones."""
+
+    @staticmethod
+    def supports(scene: SceneData, camera=None, film=None,
+                 allow_medium=True) -> tuple[bool, str]:
+        return MegaPathTracer.supports(scene, camera, film,
+                                       allow_medium=True)
+
+    @staticmethod
+    def _medium(scene):
+        """(σt rgb, albedo rgb, g, bound) of the scene's medium, or None."""
+        return scene_medium(scene)
 
 
 def render_persistent(integ: MegaPathTracer, camera, spp: int,

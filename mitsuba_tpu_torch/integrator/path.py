@@ -51,11 +51,14 @@ class _Vertex(NamedTuple):
     L: torch.Tensor         # radiance with this vertex's emission added
     ds: object              # the NEE sample (emitter DirectSample)
     active: torch.Tensor    # lane active on entry
-    hit: torch.Tensor       # active and hit
-    shadow: torch.Tensor    # NEE attempted (a shadow ray is counted)
+    event: torch.Tensor     # active with an event: a surface hit, or a
+                            # scatter in the medium (VolPathTracer)
+    shadow: torch.Tensor    # NEE attempted
     eta_scale: torch.Tensor
     d1: object              # this bounce's 1-D and 2-D draws by dim offset
     d2: object
+    scatter: object = None  # active and scattered in the medium, or None
+    p: object = None        # the event point (the hit, or the scatter)
 
 
 @dataclass(frozen=True)
@@ -81,6 +84,9 @@ class PathTracer:
     families: tuple | None = None
     # set by specialized_for only
     settled: bool = dataclasses.field(default=False, init=False, repr=False)
+    # the shadow rays bounce counts: attempted (the JAX PathTracer and the
+    # megakernel) or, when False, unoccluded (the JAX VolPathTracer)
+    count_attempted = True
 
     def __post_init__(self):
         if self.max_depth <= 0:
@@ -156,8 +162,9 @@ class PathTracer:
         eta_scale; pixel [N] integer ids, samp an int or [N] sample
         indices, bounce the 0-based bounce index. Returns (new state
         [16, N], traced [N] bool: this lane traced a closest-hit ray,
-        shadow [N] bool: it attempted a shadow ray). Lanes inactive on
-        entry come out unchanged."""
+        shadow [N] bool: it attempted a shadow ray, or traced one that
+        was not occluded where count_attempted is False). Lanes inactive
+        on entry come out unchanged."""
         if not self.settled:
             return self.specialized_for(scene, state.device).bounce(
                 scene, state, seed, pixel, samp, bounce)
@@ -170,9 +177,11 @@ class PathTracer:
                               v.throughput, v.L, v.ds, v.active, v.eta_scale,
                               seed, pixel, samp, bounce, self.rr_depth,
                               self.max_depth)
+            counted = v.shadow
         else:
-            new = self._shade_eager(scene, v, bounce + 2)
-        return torch.where(v.active, new, state), v.active, v.shadow
+            new, unoccluded = self._shade_eager(scene, v, bounce + 2)
+            counted = v.shadow if self.count_attempted else unoccluded
+        return torch.where(v.active, new, state), v.active, counted
 
     def shade_inputs(self, scene: SceneData, state, seed, pixel, samp,
                      bounce: int):
@@ -198,16 +207,23 @@ class PathTracer:
         d2 = lambda off: draw_2d(seed, pixel, samp, bounce_dim(bounce, off))
 
         its = self._intersect(scene, o, d, ray_mint(o), active)
+        throughput, scatter, p_scatter = self._medium_event(
+            o, d, its, throughput, active, d2)
 
         # ---- escaped rays: environment emitter -------------------------
         escaped = active & ~its.valid
+        hit = active & its.valid
+        event, p_event = hit, its.p
+        if scatter is not None:     # a scatter comes before the surface
+            escaped, hit = escaped & ~scatter, hit & ~scatter
+            event = hit | scatter
+            p_event = torch.where(scatter[:, None], p_scatter, its.p)
         w_env = torch.where(prev_delta, 1.0,
                             mis_power(prev_pdf, pdf_direct_env(scene, d)))
         L = L + torch.where(escaped[:, None], throughput
                             * eval_env(scene, d) * w_env[:, None], 0.0)
 
         # ---- emitter hit on a surface ----------------------------------
-        hit = active & its.valid
         cos_surf = -dot(d, its.ng)          # > 0 ⇒ front side
         le = eval_area(scene, its.em_id, cos_surf)
         nee_pdf_hit = pdf_direct_area(scene, its.em_id, d, its.t, cos_surf)
@@ -221,11 +237,33 @@ class PathTracer:
         frame = perturb_shading_frame(
             scene, mat, Frame.from_normal(its.ns), its.uv)
 
-        # ---- next-event estimation -------------------------------------
-        nee_allowed = hit & (depth + 1 <= self.max_depth + 1)
-        ds = sample_direct(scene, its.p, d1(DIM_NEE_SEL), d2(DIM_NEE_POS))
-        return _Vertex(its, frame, mat, d, throughput, L, ds, active, hit,
-                       nee_allowed & (ds.pdf > 0), state[15], d1, d2)
+        # ---- next-event estimation from the event point ----------------
+        nee_allowed = event & (depth + 1 <= self.max_depth + 1)
+        ds = sample_direct(scene, p_event, d1(DIM_NEE_SEL), d2(DIM_NEE_POS))
+        return _Vertex(its, frame, mat, d, throughput, L, ds, active, event,
+                       nee_allowed & (ds.pdf > 0), state[15], d1, d2,
+                       scatter, p_event)
+
+    # ---- the medium's hooks: no medium here (VolPathTracer) -------------
+    def _medium_event(self, o, d, its, throughput, active, d2):
+        """A scatter in the medium before the closest hit: (throughput
+        with the segment's weight, scatter [N] bool or None, the scatter
+        point [N, 3])."""
+        return throughput, None, None
+
+    def _medium_nee(self, v: "_Vertex", f_nee, pdf_nee, so):
+        """NEE's (f [N, 3], pdf [N], shadow origin [N, 3]) with the
+        scattering lanes' phase function and scatter point."""
+        return f_nee, pdf_nee, so
+
+    def _medium_nee_weight(self, v: "_Vertex", nee):
+        """NEE's contribution [N, 3] attenuated by the medium."""
+        return nee
+
+    def _medium_continue(self, v: "_Vertex", d_next, o_next, bs):
+        """The continuation (d_next, o_next, bs) with the scattering
+        lanes' phase sample."""
+        return d_next, o_next, bs
 
     def _bsdf_eval(self, v: "_Vertex", wi, wo):
         """f·cosθo [N, 3] and the pdf [N] of the vertex's BSDF at local
@@ -239,32 +277,35 @@ class PathTracer:
 
     def _shade_eager(self, scene, v: "_Vertex", depth: int):
         """The shading tail (the JAX _shade_xla): NEE BSDF eval, shadow
-        trace, MIS, BSDF sampling and Russian roulette. Returns the new
-        state rows [16, N]."""
-        its, frame, d, throughput, L, ds, hit, shadow, eta_scale = (
-            v.its, v.frame, v.d, v.throughput, v.L, v.ds, v.hit,
-            v.shadow, v.eta_scale)
+        trace, MIS, BSDF sampling and Russian roulette. Returns (the new
+        state rows [16, N], the lanes whose NEE ray was traced and not
+        occluded [N] bool)."""
+        its, frame, d, throughput, L, ds, shadow, eta_scale = (
+            v.its, v.frame, v.d, v.throughput, v.L, v.ds, v.shadow,
+            v.eta_scale)
         d1, d2 = v.d1, v.d2
         wi_local = Frame.to_local(frame, -d)
         wo_nee = Frame.to_local(frame, ds.d)
         f_nee, pdf_nee = self._bsdf_eval(v, wi_local, wo_nee)
-        contributes = shadow & (f_nee > 0).any(-1)
         # shadow ray over [ε, dist·(1-ShadowEpsilon)] (scene.cpp:846)
         so = offset_ray_origin(its.p, its.ng, ds.d)
+        f_nee, pdf_nee, so = self._medium_nee(v, f_nee, pdf_nee, so)
+        contributes = shadow & (f_nee > 0).any(-1)
         occluded = self._occluded(
             scene, so, ds.d, ray_mint(so),
             ds.dist * (1.0 - SHADOW_EPSILON), contributes)
         contributes = contributes & ~occluded
         w_nee = torch.where(ds.is_delta, 1.0, mis_power(ds.pdf, pdf_nee))
-        L = L + torch.where(contributes[:, None], throughput * ds.value
-                            * f_nee * w_nee[:, None], 0.0)
+        nee = self._medium_nee_weight(v, throughput * ds.value * f_nee)
+        L = L + torch.where(contributes[:, None], nee * w_nee[:, None], 0.0)
 
         # ---- BSDF sampling → next ray ----------------------------------
         bs = self._bsdf_sample(v, wi_local, d2(DIM_BSDF_U2), d1(DIM_BSDF_U1))
         d_next = Frame.to_world(frame, bs.wo)
         o_next = offset_ray_origin(its.p, its.ng, d_next)
+        d_next, o_next, bs = self._medium_continue(v, d_next, o_next, bs)
         throughput_next = throughput * bs.weight
-        alive = (hit & (bs.pdf > 0) & (throughput_next > 0).any(-1)
+        alive = (v.event & (bs.pdf > 0) & (throughput_next > 0).any(-1)
                  & (depth <= self.max_depth))
 
         # ---- Russian roulette (path.cpp:278-289) -----------------------
@@ -283,7 +324,7 @@ class PathTracer:
             torch.where(alive[:, None], throughput_next, 0.0).T, L.T,
             torch.stack([alive.to(d.dtype),
                          torch.where(bs.is_delta, 1.0, bs.pdf),
-                         bs.is_delta.to(d.dtype), eta_scale])])
+                         bs.is_delta.to(d.dtype), eta_scale])]), contributes
 
 
 def initial_state(o, d):

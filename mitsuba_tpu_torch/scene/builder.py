@@ -214,9 +214,28 @@ class ConstantLight:
 
 
 @dataclass
+class Medium:
+    """Single global homogeneous medium (ref: src/medium/homogeneous.cpp).
+    `bound` = medium extent along any ray (vacuum beyond); stands in for
+    the reference's shape-attached medium boundaries. The JAX builder's
+    heterogeneous density grid and its SGGX and fiber phases are not
+    ported: compile_scene raises NotImplementedError for them."""
+    sigma_t: Sequence[float] = (1.0, 1.0, 1.0)
+    albedo: Sequence[float] = (0.5, 0.5, 0.5)
+    g: float = 0.0
+    bound: float = 1e30
+    density_grid: np.ndarray = None
+    grid_min: Sequence[float] = (0.0, 0.0, 0.0)
+    grid_max: Sequence[float] = (1.0, 1.0, 1.0)
+    sggx_s: Sequence[float] = None
+    fiber_orientation: Sequence[float] = None
+
+
+@dataclass
 class SceneDesc:
     """envmap: an image-based environment is not ported, and
-    compile_scene raises for one."""
+    compile_scene raises for one. medium: one global homogeneous
+    Medium, or None."""
     materials: list = field(default_factory=list)
     shapes: list = field(default_factory=list)
     point_lights: list = field(default_factory=list)
@@ -225,6 +244,7 @@ class SceneDesc:
     directional_lights: list = field(default_factory=list)
     constant_light: Optional[ConstantLight] = None
     envmap: object = None
+    medium: Optional[Medium] = None
 
     def add_material(self, **kw) -> int:
         self.materials.append(Material(**kw))
@@ -333,6 +353,25 @@ def _light_rows(desc: SceneDesc, emitters: list):
         delta(S.EM_CONSTANT, desc.constant_light.radiance, np.zeros(3),
               desc.constant_light.sampling_weight)
     return rows, env_id
+
+
+def _medium_rows(medium, f32, dev):
+    """The homogeneous medium's SceneData fields, as the JAX builder
+    writes them (mitsuba_tpu/scene/builder.py:601-622); zeros, bound 1e30
+    and has_medium False for a scene without one."""
+    if medium is None:
+        return dict(med_sigma_t=f32(np.zeros((1, 3))),
+                    med_albedo=f32(np.zeros((1, 3))), med_g=f32(np.zeros(1)),
+                    med_bound=f32(np.full(1, 1e30)),
+                    has_medium=torch.tensor(False, device=dev))
+    if (medium.density_grid is not None or medium.sggx_s is not None
+            or medium.fiber_orientation is not None):
+        raise NotImplementedError(
+            "heterogeneous / anisotropic medium not ported")
+    return dict(med_sigma_t=f32(np.asarray(medium.sigma_t)[None]),
+                med_albedo=f32(np.asarray(medium.albedo)[None]),
+                med_g=f32([medium.g]), med_bound=f32([medium.bound]),
+                has_medium=torch.tensor(True, device=dev))
 
 
 def compile_scene(desc: SceneDesc, cluster_size: int = 512,
@@ -479,9 +518,7 @@ def compile_scene(desc: SceneDesc, cluster_size: int = 512,
         env_id=i32(env_id), env_img=f32(np.zeros((1, 1, 3))),
         env_row_cdf=f32([0.0, 1.0]), env_col_cdf=f32([[0.0, 1.0]]),
         env_density=f32(np.ones((1, 1))),
-        med_sigma_t=f32(np.zeros((1, 3))), med_albedo=f32(np.zeros((1, 3))),
-        med_g=f32(np.zeros(1)), med_bound=f32(np.full(1, 1e30)),
-        has_medium=torch.tensor(False, device=dev),
+        **_medium_rows(desc.medium, f32, dev),
         med_grid=f32(np.zeros((1, 1, 1))), med_grid_min=f32(np.zeros(3)),
         med_grid_extent=f32(np.ones(3)), med_majorant=f32(0.0),
         med_sggx=f32(np.zeros(6)), med_fiber=f32(np.zeros(3)),

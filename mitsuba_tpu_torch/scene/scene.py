@@ -89,7 +89,7 @@ class Intersection(NamedTuple):
 class SceneData(NamedTuple):
     """The compiled scene. T triangles (padded to a multiple of the cluster
     size with degenerate far-away triangles), M materials, E emitters, ET
-    emissive triangles. Texture, environment and medium fields hold the
+    emissive triangles. Texture and environment-image fields hold the
     same small placeholders the JAX builder makes for a scene without
     them."""
     # -- geometry --------------------------------------------------------
@@ -131,18 +131,20 @@ class SceneData(NamedTuple):
     env_row_cdf: torch.Tensor  # [2]
     env_col_cdf: torch.Tensor  # [1, 2]
     env_density: torch.Tensor  # [1, 1]
-    # -- media (placeholders) --------------------------------------------
-    med_sigma_t: torch.Tensor  # [1, 3]
-    med_albedo: torch.Tensor   # [1, 3]
-    med_g: torch.Tensor        # [1]
-    med_bound: torch.Tensor    # [1]
+    # -- the global homogeneous medium (zeros, bound 1e30 and has_medium
+    # False without one); the grid, SGGX and fiber fields are the JAX
+    # builder's placeholders for a homogeneous medium ----------------------
+    med_sigma_t: torch.Tensor  # [1, 3] extinction σt rgb
+    med_albedo: torch.Tensor   # [1, 3] single-scattering albedo rgb
+    med_g: torch.Tensor        # [1] HG asymmetry
+    med_bound: torch.Tensor    # [1] the medium's extent along a ray
     has_medium: torch.Tensor   # scalar bool
     med_grid: torch.Tensor       # [1, 1, 1]
     med_grid_min: torch.Tensor   # [3]
     med_grid_extent: torch.Tensor  # [3]
     med_majorant: torch.Tensor   # scalar
-    med_sggx: torch.Tensor = None   # [6]
-    med_fiber: torch.Tensor = None  # [3]
+    med_sggx: torch.Tensor = None   # [6] zeros
+    med_fiber: torch.Tensor = None  # [3] zeros
     env_alias: torch.Tensor = None  # always None in the port
     # per-cluster world AABBs [C, 8] (min xyz, max xyz, pad); padding
     # clusters hold inverted boxes

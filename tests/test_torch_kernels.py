@@ -2,7 +2,9 @@
 fused shade kernel) against their plain PyTorch versions, on the card,
 on the Cornell box (also through a thin lens), the four-material scene
 (also under point, spot, directional and constant lights), the
-leaf-families scene and the lights-and-composites scene (chip_smoke.py). Every test is marked `cuda` and skips without a card.
+leaf-families scene, the lights-and-composites scene and the fog scenes
+(chip_smoke.py FOG_SCENES: the homogeneous medium). Every test is marked
+`cuda` and skips without a card.
 The file
 imports neither jax nor the JAX package, so it also runs where only the
 port is installed:
@@ -13,14 +15,16 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (LENS, four_materials, leaf_families_camera,
-                        leaf_families_desc, lights_scene, walk_build)
+from chip_smoke import (FOG_SCENES, LENS, fog_scene, four_materials,
+                        leaf_families_camera, leaf_families_desc,
+                        lights_scene, walk_build)
 from mitsuba_tpu_torch.accel import dense as tdense
 from mitsuba_tpu_torch.accel import megakernel as tmk
 from mitsuba_tpu_torch.accel import shade_kernel as tshade
 from mitsuba_tpu_torch.accel import trace as ttrace
 from mitsuba_tpu_torch.core import transform as ttf
-from mitsuba_tpu_torch.integrator.mega import MegaPathTracer
+from mitsuba_tpu_torch.integrator.mega import (MegaPathTracer,
+                                               MegaVolPathTracer)
 from mitsuba_tpu_torch.integrator.path import PathTracer, initial_state
 from mitsuba_tpu_torch.scene import presets as tpresets
 from mitsuba_tpu_torch.integrator.common import ray_mint
@@ -571,3 +575,67 @@ def test_lights_shade_matches_plain_on_card(n, bounce):
     assert torch.equal(k, tshade.shade_plain(scene, packed, pix, samp, 0,
                                              bounce, 5, 6))
     assert tshade.LAUNCHES["shade"] == 1
+
+
+FOG_RES = 64
+
+
+def _fog_lanes(dev, name):
+    """MegaVolPathTracer's tables for FOG_SCENES[name] at 64², its camera
+    rays with every seventh lane dead on entry, pixel ids and samples."""
+    scene, cam = fog_scene(name, FOG_RES, dev)
+    tables = MegaVolPathTracer.for_scene(scene, max_depth=8).tables
+    assert tables.ext and tables.medium is not None
+    pix = torch.arange(FOG_RES * FOG_RES, dtype=torch.int32, device=dev)
+    st = initial_state(*tmk.primary_rays(cam, 0, pix, 0))
+    st[12] = torch.where(pix % 7 == 3, 0.0, st[12])
+    return tables, cam, pix, torch.zeros_like(pix), st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FOG_SCENES))
+def test_fog_mega_bounce_matches_plain_on_card(name):
+    """mega_bounce's medium branch (distance sampling, HG NEE from the
+    scatter point, the attenuated NEE, the HG continuation) against
+    MegaPlainTracer's VolPathTracer bounce, every row bit for bit, at
+    bounces 0-3 from the plain wavefront."""
+    dev = _card()
+    tables, _, pix, samp, st = _fog_lanes(dev, name)
+    tmk.reset_launches()
+    for b in range(4):
+        p = tmk.bounce_plain(tables, 5, 8, st, pix, samp, 0, b)
+        assert torch.equal(tmk.run_bounce(tables, 5, 8, st, pix, samp, 0, b),
+                           p), b
+        st = p[:16]
+    assert tmk.LAUNCHES["mega_bounce"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FOG_SCENES))
+def test_fog_mega_path_matches_plain_on_card(name):
+    """mega_path with the medium against path_plain bit for bit, the
+    count rows (attempted shadow rays) included."""
+    dev = _card()
+    tables, _, pix, samp, st = _fog_lanes(dev, name)
+    tmk.reset_launches()
+    k = tmk.run_path(tables, 5, 8, 8, st, pix, samp, 1)
+    assert torch.equal(k, tmk.path_plain(tables, 5, 8, 8, st, pix, samp, 1))
+    assert tmk.LAUNCHES["mega_path"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FOG_SCENES))
+def test_fog_mega_persistent_matches_plain_on_card(name):
+    """mega_persistent with the medium against persistent_plain bit for
+    bit over 4 spp: each regenerated camera path samples the medium
+    again from the camera."""
+    dev = _card()
+    tables, cam, pix, samp, st = _fog_lanes(dev, name)
+    pst = torch.cat([st, torch.zeros_like(st[:8])])
+    tmk.reset_launches()
+    k = tmk.run_persistent(tables, 5, 8, 4, cam, pst, pix, samp, 1)
+    assert torch.equal(k, tmk.persistent_plain(tables, 5, 8, 4, cam, pst,
+                                               pix, samp, 1))
+    live = st[12] > 0.5
+    assert (k[17][live] == 4).all() and (k[17][~live] == 0).all()
+    assert tmk.LAUNCHES["mega_persistent"] == 1
