@@ -153,6 +153,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 DEV = "cuda"
@@ -278,9 +279,12 @@ FOG_SCENES = {"fog": ("cornell", {}), "fog_point": ("point", {}),
               "fog_point_bound": ("point", {"bound": 4.0}),
               "fog_g0": ("cornell", {"g": 0.0})}
 FOG_VARIANT_RES = 128       # every fog scene but "fog" (at CORNELL_RES)
-FOG_BOUNCES = (0, 1, 2, 3)  # mega_bounce against its plain version
-FOG_PLAIN_RES = 128         # mega_persistent against persistent_plain ...
-FOG_PLAIN_SPP = 4           # ... at 4 spp
+# mega_exact (phases 20 and 21): mega_bounce against its plain version at
+# these bounces, mega_persistent against persistent_plain on EXACT_PLAIN_RES²
+# pixels at EXACT_PLAIN_SPP
+EXACT_BOUNCES = (0, 1, 2, 3)
+EXACT_PLAIN_RES = 128
+EXACT_PLAIN_SPP = 4
 FOG_SPP = 16                # eager VolPathTracer, render() with
                             # MegaVolPathTracer and render_persistent
 FOG_TIMED_SPP = 256         # one mega_persistent launch, timed
@@ -290,6 +294,17 @@ FOG_CPU_RES, FOG_CPU_SPP = 64, 2   # the eager integrators, card vs CPU
 # NVIDIA H100 80GB HBM3 at 700 W)
 GUARD_BANDS = {"cornell 2048 spp": (165.88, 167.49),
                "lights 256 spp": (178.47, 185.23)}
+# phase 21: config 3's textures and envmap ("texenv", the eager path) and
+# the procedural checker/grid albedo ("proctex", the megakernels; the
+# recipe of tests/test_mega_tpu.py:467-529)
+TEXENV_DEPTH = 8
+TEXENV_SPP = 16             # eager rays/s, fused_shade off and on
+TEXENV_BOUNCES = (0, 3)     # the trace and shade kernels' rays
+TEXENV_SKY = (256, 512)     # the envmap's rows and columns
+TEXENV_CPU_RES, TEXENV_CPU_SPP = 64, 2   # the eager path, card vs CPU
+PROCTEX_DEPTH = 6
+PROCTEX_SPP = 16            # render() with MegaPathTracer, render_persistent
+PROCTEX_TIMED_SPP = 256     # one mega_persistent launch, timed
 # families whose eval runs without the both-above-the-surface test
 TRANSMISSIVE = (5, 12)      # rough dielectric, difftrans
 SHADE_ROWS_IN, SHADE_ROWS_OUT = 50, 16
@@ -729,6 +744,29 @@ def medium_ops(tables):
             sigma_t, one[0], med[7]))}
 
 
+def tex_ops():
+    """fp32 operations of the procedural albedo for one lane, counted
+    (count_ops) from the plain versions csrc/megakernel.cu computes op for
+    op: "uv", the hit's uv from the attribute rows (the corners rebuilt
+    as uv0 + Δ, interpolated by the barycentrics), and "checker" and
+    "grid", proc_albedo with its four corners' checker_c0 or grid_c0
+    (proc_albedo's count less the other kind's four corner tests: the
+    plain version computes both, the kernel the row's)."""
+    from mitsuba_tpu_torch.accel import megakernel as mk
+    t = lambda *v: torch.tensor([v], dtype=torch.float32)
+    count = functools.partial(count_ops, elementwise=True)
+    row = torch.zeros((mk.N_MAT, 1))
+    row[mk.TEXROW + 7:mk.TEXROW + 10, 0] = torch.tensor([512.0, 8.0, 0.02])
+    one, uv = t(0.3), t(0.3, 0.6)
+    corner = (one[0], one[0], row[mk.TEXROW + 7], row[mk.TEXROW + 8])
+    chk = 4 * count(lambda: mk.checker_c0(*corner))
+    grd = 4 * count(lambda: mk.grid_c0(*corner, one[0]))
+    both = count(lambda: mk.proc_albedo(row, uv))
+    return {"uv": count(lambda: (uv * one + (uv + uv) * one)
+                        + (uv + uv) * one),
+            "checker": both - grd, "grid": both - chk}
+
+
 def composite_ops(tables, fam_ops):
     """fp32 operations of each composite material row's eval and sample
     for one lane, from COMPOSITE_OPS and its children's family_ops:
@@ -805,7 +843,9 @@ def bounce_work(tables, state, pix, samp, bounce, fam_ops, max_depth,
     (attempted NEE with the BSDF, or the phase function, nonzero toward
     the light) and the shading operations of the events, each charged
     the common SHADE_OPS plus, on a surface, its family's sample and,
-    where the eval branch runs, its eval. With a medium in the tables,
+    where the eval branch runs, its eval, and where its material has a
+    procedural albedo, the uv and the albedo (tex_ops). With a medium in
+    the tables,
     every live lane is charged the distance sample, a lane that scatters
     MEDIUM_SHADE_OPS in place of SHADE_OPS and the scatter point and HG's
     value and sample in place of its BSDF's, and an unoccluded NEE ray the
@@ -824,6 +864,12 @@ def bounce_work(tables, state, pix, samp, bounce, fam_ops, max_depth,
                                               bounce, max_depth, seed)
     surf = its.valid & ~in_med
     mat, mat_a, mat_b = mk.child_rows(tables, its.mat_id)
+    tex_kind = mat[mk.TEXROW]
+    if tables.textured:      # the kernel's rows: the procedural albedo
+        albedo = torch.where(tex_kind >= 0, mk.proc_albedo(mat, its.uv),
+                             mat[0:3])
+        mat, mat_a, mat_b = (torch.cat([albedo, r[3:]])
+                             for r in (mat, mat_a, mat_b))
     frame = Frame.from_normal(its.ns)
     wi, wo = Frame.to_local(frame, -d), Frame.to_local(frame, ds.d)
     fsign = torch.where((mat[15] > 0.5) & (wi[:, 2] < 0), -1.0, 1.0)
@@ -856,6 +902,11 @@ def bounce_work(tables, state, pix, samp, bounce, fam_ops, max_depth,
                                                    & (em == t)).sum())
         if tables.env >= 0:
             shade_ops += ENV_OPS * int((live & ~its.valid & ~in_med).sum())
+    if tables.textured:      # a surface hit's procedural albedo
+        t_ops = tex_ops()
+        for kind, name in ((0.0, "checker"), (1.0, "grid")):
+            shade_ops += (t_ops["uv"] + t_ops[name]) * int(
+                (surf & (tex_kind == kind)).sum())
     if tables.medium is not None:
         m = medium_ops(tables)
         lit = traced & ~dense.ray_test(scene, so, ds.d, ray_mint(so),
@@ -1165,7 +1216,8 @@ def four_materials(res, device=DEV, two_sided=False, lights=False):
     return compile_scene(desc, device=device), cam
 
 
-def shade_bound(label, scene, packed, bounce, rr_depth, fam_ops, card):
+def shade_bound(label, scene, packed, bounce, rr_depth, fam_ops, card,
+                depth=SHADE_DEPTH):
     """The card's least time for one fused shade launch on these rows: the
     bytes over 3.35 TB/s and the fp32 operations over 67 TFLOP/s, each
     lane counted by what it does. A lane active on entry reads the K_IN
@@ -1182,9 +1234,9 @@ def shade_bound(label, scene, packed, bounce, rr_depth, fam_ops, card):
     act = packed[sk.I_ACT] > 0.5
     n_act = int(act.sum())
     mtype = packed[sk.I_MAT + 12]
-    fr = sk._front(packed, bounce, SHADE_DEPTH)
+    fr = sk._front(packed, bounce, depth)
     both_up = (fr.wi[2] > 0) & (fr.wo[2] > 0)
-    so, sd, smint, smaxt, live = sk.shadow_rays(packed, bounce, SHADE_DEPTH)
+    so, sd, smint, smaxt, live = sk.shadow_rays(packed, bounce, depth)
     n_live = int(live.sum())
     ops = SHADE_KERNEL_OPS["common"] * n_act
     ops += SHADE_KERNEL_OPS["shadow setup"] * n_live
@@ -1964,6 +2016,147 @@ def fog_point_camera(cam_cls, tf, res):
         origin=[0, 1, 5], target=[0, 0.9, 4], up=[0, 1, 0]))
 
 
+def proctex_desc(builder, tf, shapes, texture):
+    """The procedural-texture scene of tests/test_mega_tpu.py:467-529 over
+    either package's builder, transform, shapes and texture modules: a
+    checkerboard floor, a grid wall (line width 0.02), a GGX rough
+    conductor sphere(16, 32) (α 0.25) and a rectangle light at y = 4."""
+    d = builder.SceneDesc()
+    chk = d.add_texture(texture.checkerboard(color0=(0.7, 0.2, 0.2),
+                                             color1=(0.2, 0.2, 0.7)))
+    grd = d.add_texture(texture.grid_texture(color0=(0.1, 0.6, 0.1),
+                                             color1=(0.7, 0.7, 0.6),
+                                             line_width=0.02))
+    floor = d.add_material(kind="diffuse", albedo=(1, 1, 1),
+                           albedo_texture=chk)
+    wall = d.add_material(kind="diffuse", albedo=(1, 1, 1),
+                          albedo_texture=grd)
+    metal = d.add_material(kind="roughconductor", alpha=0.25)
+    d.add_shape(shapes.rectangle(), material=floor,
+                to_world=tf.translate([0, -1, 0])
+                @ tf.rotate([1, 0, 0], -90) @ tf.scale([4] * 3))
+    d.add_shape(shapes.rectangle(), material=wall,
+                to_world=tf.translate([0, 1, -3]) @ tf.scale([4] * 3))
+    d.add_shape(shapes.sphere(16, 32), material=metal)
+    d.add_shape(shapes.rectangle(), material=floor, radiance=(12, 11, 10),
+                to_world=tf.translate([0, 4, 0])
+                @ tf.rotate([1, 0, 0], 90) @ tf.scale([2] * 3))
+    return d
+
+
+def recipe_camera(cam_cls, tf, res, down=0.15):
+    """A res² camera (45° fov) at the texture recipes' ray origin (0, 1,
+    5), looking along their mean direction (0, -down, -1)."""
+    return cam_cls(res, res, 45.0, tf.look_at(
+        origin=[0, 1, 5], target=[0, 1 - down, 4], up=[0, 1, 0]))
+
+
+def sky_image(h, w):
+    """The envmap of tests/test_envmap_texture.py:15-22 at h×w: a vertical
+    gradient and a bright sun patch at (u, v) = (0.3, 0.3)."""
+    v, u = np.meshgrid((np.arange(h) + 0.5) / h, (np.arange(w) + 0.5) / w,
+                       indexing="ij")
+    base = 0.2 + 0.8 * (1 - v)
+    sun = 20.0 * np.exp(-(((u - 0.3) * 8) ** 2 + ((v - 0.3) * 8) ** 2))
+    return np.stack([base + sun, base + 0.8 * sun, base + 0.5 * sun],
+                    -1).astype(np.float32)
+
+
+def smooth_noise(rs, res, cells, channels, lo, hi):
+    """A res² image of `channels` channels in [lo, hi]: seeded uniform
+    noise on a cells² grid, blown up and box-blurred three times over a
+    cell (wrapping), so it is smooth and tiles."""
+    img = np.kron(rs.rand(cells, cells, channels),
+                  np.ones((res // cells, res // cells, 1)))
+    k = res // cells
+    for axis in (0, 1):
+        for _ in range(3):
+            img = sum(np.roll(img, s, axis) for s in range(-(k // 2),
+                                                          k - k // 2)) / k
+    return (lo + (hi - lo) * img).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def texenv_images(seed=0):
+    """The texenv scene's bitmaps from a seed: a 512² albedo (ten mip
+    levels), a 256² roughness map (σ in [0.05, 0.9]), a 256² tangent-space
+    normal map (ripples, encoded to [0, 1]³) and a 256² height map. Made
+    once per seed; the scene descriptions only read them."""
+    rs = np.random.RandomState(seed)
+    albedo = smooth_noise(rs, 512, 16, 3, 0.15, 0.85)
+    rough = smooth_noise(rs, 256, 8, 1, 0.05, 0.9)[..., 0]
+    y, x = np.meshgrid((np.arange(256) + 0.5) / 256,
+                       (np.arange(256) + 0.5) / 256, indexing="ij")
+    ph = rs.rand(2) * 2 * np.pi
+    n = np.stack([-0.4 * np.cos(12 * np.pi * x + ph[0]),
+                  -0.4 * np.cos(8 * np.pi * y + ph[1]), np.ones_like(x)], -1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    height = smooth_noise(rs, 256, 8, 1, 0.0, 1.0)[..., 0]
+    return {"albedo": albedo, "roughness": rough,
+            "normal": (0.5 * n + 0.5).astype(np.float32), "height": height}
+
+
+def texenv_desc(builder, tf, shapes, texture, sky=TEXENV_SKY):
+    """Config 3's scene ("texenv") over either package's builder,
+    transform, shapes and texture modules, from texenv_images(): an
+    envmap (sky_image at sky = (rows, columns), scale 1) as the only
+    light; a diffuse floor with the 512² albedo bitmap; a rough-diffuse
+    back wall whose σ is the roughness bitmap; a diffuse quad with the
+    normal map and one with the height map as a bump map (scale 0.05); a
+    checkerboard quad; a GGX rough conductor sphere (α 0.2) and a GGX
+    rough dielectric sphere (α 0.1)."""
+    img = texenv_images()
+    d = builder.SceneDesc()
+    t_alb = d.add_texture(img["albedo"])
+    t_rough = d.add_texture(img["roughness"])
+    t_norm = d.add_texture(img["normal"])
+    t_bump = d.add_texture(img["height"])
+    t_chk = d.add_texture(texture.checkerboard(color0=(0.8, 0.75, 0.2),
+                                               color1=(0.1, 0.1, 0.3),
+                                               tiles=4))
+    floor = d.add_material(kind="diffuse", albedo_texture=t_alb)
+    wall = d.add_material(kind="roughdiffuse", albedo=(0.6, 0.55, 0.5),
+                          roughness_texture=t_rough)
+    nmap = d.add_material(kind="diffuse", albedo=(0.7, 0.7, 0.7),
+                          normal_texture=t_norm)
+    bump = d.add_material(kind="diffuse", albedo=(0.5, 0.6, 0.7),
+                          normal_texture=t_bump, bump_scale=0.05)
+    chk = d.add_material(kind="diffuse", albedo_texture=t_chk)
+    metal = d.add_material(kind="roughconductor", alpha=0.2)
+    glass = d.add_material(kind="roughdielectric", alpha=0.1, int_ior=1.5)
+    d.add_shape(shapes.rectangle(), material=floor,
+                to_world=tf.translate([0, -1, 0])
+                @ tf.rotate([1, 0, 0], -90) @ tf.scale([4] * 3))
+    d.add_shape(shapes.rectangle(), material=wall,
+                to_world=tf.translate([0, 1, -3]) @ tf.scale([4] * 3))
+    for x, m in ((-2.2, nmap), (2.2, bump)):
+        d.add_shape(shapes.rectangle(), material=m,
+                    to_world=tf.translate([x, 0.3, -1.5])
+                    @ tf.rotate([0, 1, 0], 25 if x < 0 else -25)
+                    @ tf.scale([0.8] * 3))
+    d.add_shape(shapes.rectangle(), material=chk,
+                to_world=tf.translate([0, 1.7, -2.0]) @ tf.scale([0.7] * 3))
+    for x, m in ((-0.9, metal), (0.9, glass)):
+        d.add_shape(shapes.sphere(12, 24), material=m,
+                    to_world=tf.translate([x, -0.4, 0.2])
+                    @ tf.scale([0.6] * 3))
+    d.envmap = builder.EnvmapLight(image=sky_image(*sky))
+    return d
+
+
+def tex_scene(name, res, device=DEV):
+    """The port's "texenv" or "proctex" scene on `device`, its res²
+    camera and its scene description."""
+    from mitsuba_tpu_torch.core import transform as tf
+    from mitsuba_tpu_torch.scene import builder, shapes
+    from mitsuba_tpu_torch.sensor.sensor import PerspectiveCamera
+    from mitsuba_tpu_torch.texture import texture
+    make = {"texenv": texenv_desc, "proctex": proctex_desc}[name]
+    desc = make(builder, tf, shapes, texture)
+    return (builder.compile_scene(desc, device=device),
+            recipe_camera(PerspectiveCamera, tf, res), desc)
+
+
 def fog_scene(name, res, device=DEV):
     """FOG_SCENES[name] compiled on `device`, and its res² camera."""
     from mitsuba_tpu_torch.core import transform as tf
@@ -1979,12 +2172,13 @@ def fog_scene(name, res, device=DEV):
         fog_point_camera(PerspectiveCamera, tf, res))
 
 
-def fog_exact(name, tables, cam, res, depth, rr, plain_cam):
-    """Phase 20's lane-by-lane checks on one fog scene at res²: mega_bounce
-    at FOG_BOUNCES from the plain wavefront, mega_path over one sample,
-    mega_persistent at FOG_PLAIN_SPP on plain_cam's FOG_PLAIN_RES²
-    pixels, each against its plain version bit for bit with the count
-    rows; returns their max abs errors and the plain versions' times."""
+def mega_exact(name, tables, cam, res, depth, rr, plain_cam):
+    """Phases 20 and 21's lane-by-lane checks on one scene at res²:
+    mega_bounce at EXACT_BOUNCES from the plain wavefront, mega_path over
+    one sample, mega_persistent at EXACT_PLAIN_SPP on plain_cam's
+    EXACT_PLAIN_RES² pixels, each against its plain version bit for bit
+    with the count rows; returns their max abs errors and the plain
+    versions' times."""
     from mitsuba_tpu_torch.accel import megakernel as mk
     from mitsuba_tpu_torch.integrator.path import initial_state
     pix = torch.arange(res * res, dtype=torch.int32, device=DEV)
@@ -1992,9 +2186,9 @@ def fog_exact(name, tables, cam, res, depth, rr, plain_cam):
     st0 = initial_state(*mk.primary_rays(cam, 0, pix, 0))
     errs = {"mega_bounce": 0.0}
     st = st0
-    for b in range(max(FOG_BOUNCES) + 1):
+    for b in range(max(EXACT_BOUNCES) + 1):
         p = mk.bounce_plain(tables, rr, depth, st, pix, samp, 0, b)
-        if b in FOG_BOUNCES:
+        if b in EXACT_BOUNCES:
             k = mk.run_bounce(tables, rr, depth, st, pix, samp, 0, b)
             errs["mega_bounce"] = max(errs["mega_bounce"], compare_exact(
                 f"{name} mega_bounce, bounce {b}", k, p))
@@ -2004,44 +2198,47 @@ def fog_exact(name, tables, cam, res, depth, rr, plain_cam):
         tables, rr, depth, depth, st0, pix, samp, 0))
     errs["mega_path"] = compare_exact(f"{name} mega_path, one sample", k, p)
     check(bool((k[17] <= k[16]).all()), f"{name}: shadow counts")
-    pix_p = torch.arange(FOG_PLAIN_RES ** 2, dtype=torch.int32, device=DEV)
+    pix_p = torch.arange(EXACT_PLAIN_RES ** 2, dtype=torch.int32, device=DEV)
     pst = torch.cat([initial_state(*mk.primary_rays(plain_cam, 0, pix_p, 0)),
                      torch.zeros((8, pix_p.shape[0]), device=DEV)])
-    k = mk.run_persistent(tables, rr, depth, FOG_PLAIN_SPP, plain_cam, pst,
+    k = mk.run_persistent(tables, rr, depth, EXACT_PLAIN_SPP, plain_cam, pst,
                           pix_p, torch.zeros_like(pix_p), 0)
     plain_ms, p = events_ms(lambda: mk.persistent_plain(
-        tables, rr, depth, FOG_PLAIN_SPP, plain_cam, pst, pix_p,
+        tables, rr, depth, EXACT_PLAIN_SPP, plain_cam, pst, pix_p,
         torch.zeros_like(pix_p), 0))
     errs["mega_persistent"] = compare_exact(
-        f"{name} mega_persistent, {FOG_PLAIN_RES}² x {FOG_PLAIN_SPP} spp",
+        f"{name} mega_persistent, {EXACT_PLAIN_RES}² x {EXACT_PLAIN_SPP} spp",
         k, p)
-    check(bool((k[17] == FOG_PLAIN_SPP).all()), f"{name}: spp not done")
+    check(bool((k[17] == EXACT_PLAIN_SPP).all()), f"{name}: spp not done")
     return errs, {"mega_path": plain_path_ms, "mega_persistent": plain_ms,
                   "ms_at_plain_shape": time_ms(lambda: mk.run_persistent(
-                      tables, rr, depth, FOG_PLAIN_SPP, plain_cam, pst,
+                      tables, rr, depth, EXACT_PLAIN_SPP, plain_cam, pst,
                       pix_p, torch.zeros_like(pix_p), 0), 3, warmup=1)}
 
 
-def eager_rate(label, scene, cam, film, integrator, card):
-    """render_fn at FOG_SPP with the trace kernel's launches counted:
-    (image, rays, launches), with rays/s and the busy share of a 1-spp
-    pass printed."""
+def eager_rate(label, scene, cam, film, integrator, card, spp=FOG_SPP,
+               traced=("trace_closest", "trace_any")):
+    """render_fn at `spp` with the trace and shade kernels' launches
+    counted: (image, rays, launches), with rays/s and the busy share of a
+    1-spp pass printed; fails unless each launch of `traced` ran."""
+    from mitsuba_tpu_torch.accel import shade_kernel as sk
     from mitsuba_tpu_torch.accel import trace
     from mitsuba_tpu_torch.render import render_fn
     render_fn(scene, cam, film, integrator, spp=1, seed=0, device=DEV)
     torch.cuda.synchronize()                                # (warm-up)
     trace.reset_launches()
+    sk.reset_launches()
     t0 = time.perf_counter()
-    img, n = render_fn(scene, cam, film, integrator, spp=FOG_SPP, seed=0,
+    img, n = render_fn(scene, cam, film, integrator, spp=spp, seed=0,
                        device=DEV)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(trace.LAUNCHES)
-    print(f"[{label}] {film.width}², {FOG_SPP} spp: {wall:.3f} s, {int(n)} "
+    launches = {**trace.LAUNCHES, **sk.LAUNCHES}
+    print(f"[{label}] {film.width}², {spp} spp: {wall:.3f} s, {int(n)} "
           f"rays, {int(n) / wall:.6g} rays/s, mean {img.mean().item():.5f},"
-          f" trace launches {launches} ({card})", flush=True)
+          f" launches {launches} ({card})", flush=True)
     check(bool(torch.isfinite(img).all()), f"{label}: NaN/Inf")
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[k] > 0 for k in traced),
           f"{label}: a trace kernel was not launched")
     profile_pass(scene, cam, film, integrator, card)
     return img, int(n), launches
@@ -2114,8 +2311,8 @@ def fog_phases(card, kernels, guards):
         sc, cm = (scene, cam) if name == "fog" else fog_scene(name, r)
         tb = tables if name == "fog" else \
             MegaVolPathTracer.for_scene(sc, max_depth=depth).tables
-        e, plain = fog_exact(name, tb, cm, r, depth, rr,
-                             fog_scene(name, FOG_PLAIN_RES)[1])
+        e, plain = mega_exact(name, tb, cm, r, depth, rr,
+                             fog_scene(name, EXACT_PLAIN_RES)[1])
         for key, err in e.items():
             out[key]["max_abs_err"] = max(out[key].get("max_abs_err", 0.0),
                                           err)
@@ -2205,7 +2402,7 @@ def fog_phases(card, kernels, guards):
     out["mega_persistent"].update({
         "launches": launches, "ms": ms,
         "plain_ms": fog_plain["mega_persistent"],
-        "plain_shape": f"{FOG_PLAIN_RES}² lanes x {FOG_PLAIN_SPP} spp",
+        "plain_shape": f"{EXACT_PLAIN_RES}² lanes x {EXACT_PLAIN_SPP} spp",
         "ms_at_plain_shape": fog_plain["ms_at_plain_shape"],
         **mega_bound(f"fog mega_persistent, {FOG_TIMED_SPP} spp", work_pass,
                      int(o[22].sum()), int(o[23].sum()),
@@ -2248,6 +2445,229 @@ def fog_phases(card, kernels, guards):
     for k in kernels:
         if out[k["name"]]:
             k["fog"] = out[k["name"]]
+
+
+def tex_phases(card, kernels):
+    """Phase 21: config 3's textures and envmap on the eager path
+    ("texenv") and the procedural albedo in the megakernels ("proctex").
+    Adds to each kernel's entry of `kernels` a "textures" object: the
+    trace and shade kernels' launches on texenv's eager render (fused
+    "on" for the shade kernel), error and times on its rays; the
+    megakernels' launches, error, times and bound on proctex."""
+    from mitsuba_tpu_torch.accel import megakernel as mk
+    from mitsuba_tpu_torch.accel import shade_kernel as sk
+    from mitsuba_tpu_torch.core.math import SHADOW_EPSILON
+    from mitsuba_tpu_torch.film.film import Film
+    from mitsuba_tpu_torch.integrator.common import (offset_ray_origin,
+                                                     ray_mint)
+    from mitsuba_tpu_torch.integrator.mega import (MegaPathTracer,
+                                                   render_persistent)
+    from mitsuba_tpu_torch.core import transform as tf
+    from mitsuba_tpu_torch.integrator.path import PathTracer, initial_state
+    from mitsuba_tpu_torch.render import render_fn
+    from mitsuba_tpu_torch.sensor.sensor import PerspectiveCamera
+
+    t_start = time.perf_counter()
+    res = CORNELL_RES
+    out = {k["name"]: {} for k in kernels}
+    pix = torch.arange(res * res, dtype=torch.int32, device=DEV)
+    samp = torch.zeros_like(pix)
+    film = Film(res, res, "box")
+
+    # ---- 21. proctex: every megakernel's textured branch lane by lane ----
+    depth = PROCTEX_DEPTH
+    scene, cam, desc = tex_scene("proctex", res)
+    check(MegaPathTracer.supports(scene) == (False, "textured material"),
+          "MegaPathTracer takes proctex without its provenance")
+    integ = MegaPathTracer.for_scene(scene, max_depth=depth,
+                                     tex_procs=desc.tex_procs)
+    tables, rr = integ.tables, integ.rr_depth
+    check(tables.textured and tables.ext, "proctex: no textured tables")
+    print(f"[proctex] {scene.n_tris} triangles, "
+          f"{scene.woop_clusters.shape[0]} clusters; albedo fp32 ops per "
+          f"hit {tex_ops()}", flush=True)
+    errs, plain = mega_exact("proctex", tables, cam, res, depth, rr,
+                             recipe_camera(PerspectiveCamera, tf,
+                                           EXACT_PLAIN_RES))
+    for key, err in errs.items():
+        out[key]["max_abs_err"] = err
+    st0 = initial_state(*mk.primary_rays(cam, 0, pix, 0))
+    mk.reset_launches()
+    st, counts = st0, torch.zeros_like(st0[:2])
+    for b in range(depth):
+        o = mk.run_bounce(tables, rr, depth, st, pix, samp, 0, b)
+        st, counts = o[:16], counts + o[16:18]
+    torch.cuda.synchronize()
+    launches = mk.LAUNCHES["mega_bounce"]
+    ref = mk.run_path(tables, rr, depth, depth, st0, pix, samp, 0)
+    check(launches == depth, f"proctex mega_bounce launched {launches}")
+    check(torch.equal(st, ref[:16]) and torch.equal(counts, ref[16:18]),
+          "proctex: bounce-by-bounce pass differs from mega_path")
+    works, work_pass = pass_work(tables, st0, pix, samp, depth)
+    out0 = mk.run_bounce(tables, rr, depth, st0, pix, samp, 0, 0)
+    out["mega_bounce"].update({
+        "launches": launches,
+        "ms": time_ms(lambda: mk.run_bounce(tables, rr, depth, st0, pix,
+                                            samp, 0, 0), 50),
+        "plain_ms": time_ms(lambda: mk.bounce_plain(
+            tables, rr, depth, st0, pix, samp, 0, 0), 3, warmup=1),
+        **mega_bound("proctex mega_bounce, bounce 0", works[0],
+                     int(out0[16].sum()), int(out0[17].sum()), 0,
+                     pix.shape[0], 16, 18, tables, card)})
+
+    # ---- 21. render() with MegaPathTracer (counted) and render_persistent
+    # against the eager PathTracer on the bitmaps ------------------------
+    img_e, n_e = render_fn(scene, cam, film, PathTracer(max_depth=depth),
+                           spp=PROCTEX_SPP, seed=0, device=DEV)
+    mk.reset_launches()
+    img_m, n_m = render_fn(scene, cam, film, integ, spp=PROCTEX_SPP, seed=0,
+                           device=DEV)
+    torch.cuda.synchronize()
+    launches = mk.LAUNCHES["mega_path"]
+    img_r, n_r = render_persistent(integ, cam, PROCTEX_SPP, seed=0)
+    n_e, n_m, n_r = int(n_e), int(n_m), int(n_r)
+    print(f"[proctex mega] {PROCTEX_SPP} spp: render() {launches} mega_path "
+          f"launches, {n_m} rays, render_persistent {n_r}, eager {n_e}; "
+          f"means {img_m.mean().item():.5f} / {img_r.mean().item():.5f} / "
+          f"{img_e.mean().item():.5f}", flush=True)
+    check(launches == PROCTEX_SPP, f"proctex mega_path launched {launches}")
+    for img, label in ((img_m, "render() MegaPathTracer"),
+                       (img_r, "render_persistent")):
+        check(bool(torch.isfinite(img).all()), f"proctex {label}: NaN/Inf")
+        image_rule(img, img_e, f"proctex {label} vs eager, {PROCTEX_SPP} "
+                               "spp")
+    for n in (n_m, n_r):
+        check(abs(n - n_e) <= 1e-4 * n_e, f"proctex rays {n} vs {n_e}")
+    k = mk.run_path(tables, rr, depth, depth, st0, pix, samp, 0)
+    out["mega_path"].update({
+        "launches": launches, "plain_ms": plain["mega_path"],
+        "ms": time_ms(lambda: mk.run_path(tables, rr, depth, depth, st0, pix,
+                                          samp, 0), 20),
+        **mega_bound("proctex mega_path, one sample", work_pass,
+                     int(k[16].sum()), int(k[17].sum()), 0, pix.shape[0],
+                     16, 18, tables, card)})
+
+    # ---- 21. one timed 256-spp mega_persistent launch (counted) ----------
+    pst = torch.cat([st0, torch.zeros_like(st0[:8])])
+    run_p = lambda: mk.run_persistent(tables, rr, depth, PROCTEX_TIMED_SPP,
+                                      cam, pst, pix, samp, 0)
+    run_p()
+    mk.reset_launches()
+    ms, o = events_ms(run_p)
+    launches = mk.LAUNCHES["mega_persistent"]
+    rays = int(o[22].sum()) + int(o[23].sum())
+    check(launches == 1 and bool((o[17] == PROCTEX_TIMED_SPP).all()),
+          "proctex 256-spp launch")
+    check(bool(torch.isfinite(o[18:21]).all()), "proctex persistent NaN/Inf")
+    print(f"[proctex persistent] {res}², {PROCTEX_TIMED_SPP} spp: one launch"
+          f" {ms:.4f} ms (CUDA events), {rays} rays, "
+          f"{rays / ms * 1e3:.6g} rays/s in the kernel, mean "
+          f"{(o[18:21] / PROCTEX_TIMED_SPP).mean().item():.5f} ({card})",
+          flush=True)
+    out["mega_persistent"].update({
+        "launches": launches, "ms": ms,
+        "plain_ms": plain["mega_persistent"],
+        "plain_shape": f"{EXACT_PLAIN_RES}² lanes x {EXACT_PLAIN_SPP} spp",
+        "ms_at_plain_shape": plain["ms_at_plain_shape"],
+        **mega_bound(f"proctex mega_persistent, {PROCTEX_TIMED_SPP} spp",
+                     work_pass, int(o[22].sum()), int(o[23].sum()),
+                     PROCTEX_TIMED_SPP * pix.shape[0], pix.shape[0], 24, 24,
+                     tables, card)})
+    del tables, integ, scene
+
+    # ---- 21. texenv: the trace and shade kernels on bounce-0 and bounce-3
+    # rays (envmap shadow rays at maxt ENV_DIST) --------------------------
+    depth = TEXENV_DEPTH
+    scene, cam, _ = tex_scene("texenv", res)
+    ok, why = sk.supports(scene)
+    check(ok, f"the shade kernel refuses texenv: {why}")
+    print(f"[texenv] {scene.n_tris} triangles, "
+          f"{scene.woop_clusters.shape[0]} clusters, "
+          f"{scene.tex_data.shape[0]} texels, envmap "
+          f"{tuple(scene.env_img.shape[:2])}", flush=True)
+    fam_ops = family_ops(mk.build_mega_tables(scene))
+    tracer = PathTracer(max_depth=depth, accel="plain").specialized_for(
+        scene)
+    errs = {"trace_closest": 0.0, "trace_any": 0.0}
+    shade_err, shade_rows = 0.0, {}
+    st = initial_state(*mk.primary_rays(cam, 0, pix, 0))
+    for b in range(max(TEXENV_BOUNCES) + 1):
+        if b in TEXENV_BOUNCES:
+            live = st[12] > 0.5
+            o, d = st[0:3].T.contiguous(), st[3:6].T.contiguous()
+            v = tracer._vertex(scene, st, 0, pix, samp, b)
+            so = offset_ray_origin(v.its.p, v.its.ng, v.ds.d)
+            rays = {"trace_closest": (o, d, ray_mint(o),
+                                      torch.full_like(o[:, 0], 1e30), live),
+                    "trace_any": (so, v.ds.d, ray_mint(so), v.ds.dist
+                                  * (1.0 - SHADOW_EPSILON), v.shadow)}
+            env = int((v.shadow & (v.ds.dist >= 1e30)).sum())
+            print(f"[texenv] bounce {b}: {int(live.sum())} live rays, "
+                  f"{int(v.shadow.sum())} shadow rays, {env} of them to the "
+                  f"envmap at maxt ~1e30", flush=True)
+            compare(f"texenv bounce {b} rays", scene, *rays["trace_closest"],
+                    errs)
+            compare(f"texenv bounce {b} shadow", scene, *rays["trace_any"],
+                    errs)
+            for name, any_hit in (("trace_closest", False),
+                                  ("trace_any", True)):
+                out[name][f"b{b}"] = measure(
+                    f"{name}, texenv bounce {b}", any_hit, scene,
+                    rays[name], 2, card)
+            packed = tracer.shade_inputs(scene, st, 0, pix, samp, b)
+            run = lambda: sk.run_shade(scene, packed, pix, samp, 0, b,
+                                       tracer.rr_depth, depth)
+            plain_fn = lambda: sk.shade_plain(scene, packed, pix, samp, 0,
+                                              b, tracer.rr_depth, depth)
+            shade_err = max(shade_err, compare_exact(
+                f"texenv shade, bounce {b}", run(), plain_fn()))
+            shade_rows[f"b{b}"] = {
+                "ms": time_ms(run, 50),
+                "plain_ms": time_ms(plain_fn, 3, warmup=1),
+                **shade_bound(f"texenv shade, bounce {b}", scene, packed, b,
+                              tracer.rr_depth, fam_ops, card, depth)}
+        st = tracer.bounce(scene, st, 0, pix, samp, b)[0]
+    for name in ("trace_closest", "trace_any"):
+        out[name]["max_abs_err"] = errs[name]
+    out["shade"].update({"max_abs_err": shade_err, **shade_rows})
+
+    # ---- 21. the eager path, fused "off" and "on" (counted) --------------
+    images = {}
+    for mode in ("off", "on"):
+        img, n, launches = eager_rate(
+            f"texenv eager, fused {mode}", scene, cam, film,
+            PathTracer(max_depth=depth, fused_shade=mode), card,
+            spp=TEXENV_SPP, traced=("trace_closest",) if mode == "on"
+            else ("trace_closest", "trace_any"))
+        images[mode] = img
+        if mode == "on":
+            out["shade"]["launches"] = launches["shade"]
+            check(launches["shade"] == depth * TEXENV_SPP,
+                  f"texenv shade launched {launches['shade']} times")
+        else:
+            for name in ("trace_closest", "trace_any"):
+                out[name]["launches"] = launches[name]
+    image_rule(images["on"], images["off"],
+               f"texenv fused on vs off, {TEXENV_SPP} spp")
+
+    # ---- 21. the card against CPU tensors ---------------------------------
+    small = Film(TEXENV_CPU_RES, TEXENV_CPU_RES, "box")
+    cpu_scene, cpu_cam, _ = tex_scene("texenv", TEXENV_CPU_RES, "cpu")
+    integ = PathTracer(max_depth=depth)
+    img_k, n_k = render_fn(scene, cpu_cam, small, integ,
+                           spp=TEXENV_CPU_SPP, seed=0, device=DEV)
+    img_c, n_c = render_fn(cpu_scene, cpu_cam, small, integ,
+                           spp=TEXENV_CPU_SPP, seed=0, device="cpu")
+    print(f"[texenv cpu] {TEXENV_CPU_RES}², {TEXENV_CPU_SPP} spp: card "
+          f"{int(n_k)} rays, CPU {int(n_c)}", flush=True)
+    image_rule(img_k.cpu(), img_c, "texenv card vs CPU tensors")
+    check(abs(int(n_k) - int(n_c)) <= 1e-4 * int(n_c),
+          f"texenv rays {int(n_k)} vs {int(n_c)}")
+    print(f"[tex] phase 21: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    for k in kernels:
+        if out[k["name"]]:
+            k["textures"] = out[k["name"]]
 
 
 def walk_phase(card, cases):
@@ -2618,6 +3038,7 @@ def main():
         "cornell 2048 spp": sum(bench_out[s][0] for s in BENCH_SEEDS)
         / len(BENCH_SEEDS),
         "lights 256 spp": persist["lights_composites"]["ms"]})
+    tex_phases(card, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -3,7 +3,8 @@ sample loop in one CUDA kernel (port of mitsuba_tpu/accel/megakernel.py:
 pinhole or thin-lens camera, flat or smooth shading normals, the 14 leaf
 BSDF families with the two-sided adapter, the composites over leaf
 children, area, point, spot and directional emitters and the constant
-environment, and the global homogeneous medium; no textures).
+environment, the global homogeneous medium, and the analytic checker and
+grid albedo of textures with procedural provenance).
 
 Three entry points share one device bounce (csrc/megakernel.cu):
 
@@ -26,7 +27,9 @@ NEE over every emitter type and the sky on escape are the eager ones
 tables carry a medium, its hooks (integrator/volpath.py) take the JAX
 megakernel's forms of the medium terms (medium_segment, hg_value,
 hg_sample_kernel); MegaPlainTracer counts attempted shadow rays, as the
-kernel does.
+kernel does. When the tables carry procedural textures (MegaTables.
+textured), its material rows take proc_albedo, the analytic bilinear
+checker or grid at the hit's uv, in columns 0-2, as the kernel's do.
 `bounce_plain` is one call, `path_plain` loops it, and `persistent_plain`
 runs path_plain for every sample index and sums L and the counts, which
 is the persistent kernel's per-pixel estimate. The fused shade kernel
@@ -85,8 +88,9 @@ N_ATTR = 25         # per-triangle attrs: ng xyz (0:3), mat_id (3),
                     # emitter area (17), emitter pmf (18), uv0 (19:21),
                     # uv1-uv0 (21:23), uv2-uv0 (23:25)
 TEXROW = 24         # material columns past the scene's 24 mat_params:
-                    # 24 procedural-texture kind (-1: none; the texture
-                    # rows 25..33 are not ported and stay 0)
+                    # 24 procedural-texture kind (-1: none, 0 checker,
+                    # 1 grid), 25:28 color0, 28:31 color1, 31 raster
+                    # resolution, 32 tiles, 33 grid line width
 RTROW = TEXROW + 10  # rough-plastic transmittance: 34 internal Fdr,
 RT_KNOTS = 32       # 35:67 T(cosθ) on the table's cosθ grid, 67 grid lo,
                     # 68 grid hi (bsdf/rtrans.py collapsed per material)
@@ -109,9 +113,10 @@ def reset_launches():
 class MegaTables:
     """Scene tables on the scene's device, row-major for per-thread
     gathers. `scene` is the scene they were built from; `plain_scene` is
-    that scene with each triangle's corner normals rebuilt as the kernel
-    rebuilds them, vn0 + (vnk - vn0) in float32 (the same normals where a
-    triangle is flat), for the plain versions."""
+    that scene with each triangle's corner normals and uvs rebuilt as the
+    kernel rebuilds them, vn0 + (vnk - vn0) and uv0 + (uvk - uv0) in
+    float32 (the same values where a triangle is flat), for the plain
+    versions."""
     woop: torch.Tensor       # [C, 3*64, 4] the scene's woop_clusters
     aabb: torch.Tensor       # [C, 8] the scene's cluster_aabb
     attr: torch.Tensor       # [T, N_ATTR] per triangle
@@ -127,8 +132,12 @@ class MegaTables:
     m_real: int
     et_real: int             # real emissive-triangle rows (at least 1)
     env: int                 # the constant environment's emitter row, -1
-    ext: bool                # non-area emitters, composites or a medium:
-                             # the kernels' kExt instantiations
+    ext: bool                # non-area emitters, composites, a medium or
+                             # procedural textures: the kernels' kExt
+                             # instantiations
+    textured: bool           # some material's albedo is a procedural
+                             # texture (TEXROW rows): the kTex
+                             # instantiations (with kExt)
     medium: tuple | None     # the homogeneous medium's σt rgb, albedo
                              # rgb, g, bound (float32 values), or None
     scene: SceneData
@@ -158,20 +167,39 @@ def _rough_plastic_rows(row):
     return out
 
 
-def build_mega_tables(scene: SceneData, medium=None) -> MegaTables:
+def _proc_rows(proc):
+    """The TEXROW columns of a checker or grid texture's provenance
+    (texture.py ProcImage.proc), as the JAX build_mega_tables writes
+    them (:355-372)."""
+    out = np.zeros(10, np.float32)
+    out[0] = {"checker": 0.0, "grid": 1.0}[proc[0]]
+    out[1:4] = proc[1]
+    out[4:7] = proc[2]
+    out[7] = float(proc[3])
+    out[8] = float(proc[4])
+    out[9] = float(proc[5]) if len(proc) > 5 else 0.0
+    return out
+
+
+def build_mega_tables(scene: SceneData, medium=None,
+                      tex_procs=None) -> MegaTables:
     """The JAX build_mega_tables without its TPU layouts; `medium`, the 8
     floats of the JAX MegaVolPathTracer (σt rgb, albedo rgb, g, bound) or
-    None, compiles in the medium branch (rounded to float32 here). Raises
-    NotImplementedError for textured materials, whose texture rows the
-    port does not build."""
+    None, compiles in the medium branch (rounded to float32 here);
+    `tex_procs`, a scene description's texture slot → procedural
+    provenance (SceneDesc.tex_procs), fills the TEXROW rows of each
+    material whose albedo texture has one. Other textures are left out of
+    the tables (MegaPathTracer.supports refuses their scenes)."""
     mat_rows = to_numpy(scene.mat_params).astype(np.float32)
     mat = np.zeros((mat_rows.shape[0], N_MAT), np.float32)
     mat[:, :mat_rows.shape[1]] = mat_rows
     mat[:, TEXROW] = -1.0
     for mi in np.nonzero(mat_rows[:, 12] == MAT_ROUGH_PLASTIC)[0]:
         mat[mi, RTROW:] = _rough_plastic_rows(mat_rows[mi])
-    if (mat[:, 13] >= 0).any():
-        raise NotImplementedError("procedural-texture rows are not ported")
+    for mi, slot in enumerate(mat_rows[:, 13].astype(int)):
+        if slot >= 0 and (tex_procs or {}).get(slot) is not None:
+            mat[mi, TEXROW:RTROW] = _proc_rows(tex_procs[slot])
+    textured = bool((mat[:, TEXROW] >= 0).any())
     attr = to_numpy(scene.tri_attr)
     n_t = attr.shape[0]
     areas = to_numpy(scene.tri_area)
@@ -240,6 +268,8 @@ def build_mega_tables(scene: SceneData, medium=None) -> MegaTables:
     corners = attr.copy()
     corners[:, 6:9] = attr_p[:, 5:8] + attr_p[:, 8:11]
     corners[:, 9:12] = attr_p[:, 5:8] + attr_p[:, 11:14]
+    corners[:, 14:16] = attr_p[:, 19:21] + attr_p[:, 21:23]
+    corners[:, 16:18] = attr_p[:, 19:21] + attr_p[:, 23:25]
     return MegaTables(
         woop=scene.woop_clusters, aabb=scene.cluster_aabb, attr=f32(attr_p),
         mat=f32(mat), em_rows=f32(rows), em_meta=f32(meta),
@@ -249,7 +279,8 @@ def build_mega_tables(scene: SceneData, medium=None) -> MegaTables:
         env=int(scene.env_id) if n_em else -1,
         ext=bool((meta[:n_em, 2] != EM_AREA).any()
                  or np.isin(mat[:, 12], sorted(COMPOSITE_FAMILIES)).any()
-                 or medium is not None),
+                 or medium is not None or textured),
+        textured=textured,
         medium=None if medium is None else tuple(
             float(x) for x in np.asarray(medium, np.float32)),
         scene=scene,
@@ -318,8 +349,17 @@ class MegaPlainTracer(VolPathTracer):
         return hg_sample_kernel(self.medium[6], d, u2)
 
     def _rows(self, v):
-        """(top, child A, child B) material rows of the vertex's lanes."""
-        return child_rows(self.tables, v.its.mat_id)
+        """(top, child A, child B) material rows of the vertex's lanes,
+        columns 0-2 of a procedurally textured lane's rows replaced by
+        proc_albedo at its uv (a textured lane is a leaf, whose child
+        rows are its own)."""
+        rows = child_rows(self.tables, v.its.mat_id)
+        if not self.tables.textured:
+            return rows
+        top = rows[0]
+        albedo = torch.where(top[TEXROW] >= 0, proc_albedo(top, v.its.uv),
+                             top[0:3])
+        return tuple(torch.cat([albedo, r[3:]]) for r in rows)
 
     @staticmethod
     def _flip(mat, wi):
@@ -343,6 +383,52 @@ class MegaPlainTracer(VolPathTracer):
         return BSDFSample(torch.stack([nwx, nwy, nwz * fsign], -1),
                           torch.stack([w_r, w_g, w_b], -1), pdf, is_delta,
                           eta)
+
+
+def checker_c0(xw, yw, tres, ttil):
+    """1 where the checkerboard's texel (xw, yw) holds color0 (its cell's
+    parity is even), else 0."""
+    cxy = torch.floor(xw * ttil / tres) + torch.floor(yw * ttil / tres)
+    return 1.0 - (cxy - 2.0 * torch.floor(cxy * 0.5))
+
+
+def grid_c0(xw, yw, tres, ttil, lw):
+    """1 where the grid's texel (xw, yw) lies on a line (within lw of an
+    integer, rounding half to even), else 0."""
+    ax, ay = (xw + 0.5) / tres * ttil, (yw + 0.5) / tres * ttil
+    return ((torch.abs(ax - torch.round(ax)) < lw)
+            | (torch.abs(ay - torch.round(ay)) < lw)).to(xw.dtype)
+
+
+def proc_albedo(mat, uv):
+    """The analytic bilinear checker or grid albedo [3, N] of material
+    rows mat [N_MAT, N] (TEXROW..) at uv [N, 2] (the JAX megakernel's
+    :720-780): texture.eval_texture_lod at level 0 over the rasterized
+    bitmap (texel centers at -0.5, v flipped, repeat wrap), with each
+    corner's checker_c0 or grid_c0 in place of the texel fetch. The same
+    forms as the JAX kernel, in its order: the wrap x - floor(x / res)·res
+    and the cell floor((x·tiles) / res) divide by the row's resolution.
+    csrc/megakernel.cu computes it op for op."""
+    u, v = uv[:, 0], uv[:, 1]
+    tres = torch.clamp(mat[TEXROW + 7], min=1.0)
+    ttil = torch.clamp(mat[TEXROW + 8], min=1.0)
+    lw = mat[TEXROW + 9] * ttil
+    fx = u * tres - 0.5
+    fy = (1.0 - v) * tres - 0.5
+    x0, y0 = torch.floor(fx), torch.floor(fy)
+    tx, ty = fx - x0, fy - y0
+    wrap = lambda x: x - torch.floor(x / tres) * tres
+    grid = mat[TEXROW] == 1.0
+    c0 = lambda xw, yw: torch.where(grid, grid_c0(xw, yw, tres, ttil, lw),
+                                    checker_c0(xw, yw, tres, ttil))
+    xw0, xw1, yw0, yw1 = wrap(x0), wrap(x0 + 1.0), wrap(y0), wrap(y0 + 1.0)
+    s0w = (c0(xw0, yw0) * (1.0 - tx) * (1.0 - ty)
+           + c0(xw1, yw0) * tx * (1.0 - ty)
+           + c0(xw0, yw1) * (1.0 - tx) * ty
+           + c0(xw1, yw1) * tx * ty)
+    return torch.stack([mat[TEXROW + 1 + k] * s0w
+                        + mat[TEXROW + 4 + k] * (1.0 - s0w)
+                        for k in range(3)])
 
 
 # ---------------------------------------------------------------------------
@@ -1422,7 +1508,7 @@ _TABLE_ARGS = ([ctypes.c_void_p, ctypes.c_void_p,        # woop aabb
                + [ctypes.c_void_p, ctypes.c_int]         # em_rows et_real
                + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]  # meta cdf E
                + [ctypes.c_int, ctypes.c_int]            # env ext
-               + [ctypes.c_void_p])                      # medium (host)
+               + [ctypes.c_void_p, ctypes.c_int])        # medium (host) tex
 
 
 def _library():
@@ -1457,7 +1543,8 @@ def _launch(name, tables: MegaTables, state, rows_in, rows_out, pixel,
     """Check the inputs, allocate the output and launch entry `name` on
     PyTorch's current stream, in the kExt instantiation when the tables
     (or `ext`) ask for it, with the tables' medium (8 host floats, or a
-    null pointer); raises on a refused launch."""
+    null pointer), in the kTex instantiation when they carry procedural
+    textures; raises on a refused launch."""
     dev = state.device
     n = state.shape[1]
     check = trace.check_tensor
@@ -1490,7 +1577,7 @@ def _launch(name, tables: MegaTables, state, rows_in, rows_out, pixel,
                  tables.em_cdf.data_ptr(),
                  tables.em_count, tables.env, int(tables.ext or ext),
                  None if med is None else ctypes.addressof(med),
-                 state.data_ptr(), out.data_ptr(),
+                 int(tables.textured), state.data_ptr(), out.data_ptr(),
                  pixel.data_ptr(), samp.data_ptr(), n,
                  seed & 0xFFFFFFFF, *ints, *extra, stream)
     if err != 0:

@@ -22,6 +22,7 @@ import ctypes
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core import rng
@@ -86,7 +87,11 @@ def supports(scene: SceneData) -> tuple[bool, str]:
     microfacet branches are isotropic GGX, so a Beckmann or anisotropic
     rough conductor and a non-GGX or anisotropic rough dielectric are
     turned away too (the gate of integrator/mega.py) instead of rendering
-    as isotropic GGX."""
+    as isotropic GGX. The rows the kernel gets are texture-resolved
+    (bsdf.resolve_material), and a roughness texture replaces α_u
+    (column 9) alone, which makes the eager GGX anisotropic lane by lane
+    (it reads α_v from column 10); so a rough conductor or dielectric
+    with a roughness texture is turned away as well."""
     if scene.woop_clusters is None or scene.cluster_aabb is None:
         return False, "no cluster table"
     fams = set(scene.mat_type.tolist())
@@ -112,6 +117,12 @@ def supports(scene: SceneData) -> tuple[bool, str]:
     if (rd[:, 11] != 1.0).any() or (rd[:, 9] != rd[:, 10]).any():
         return False, ("non-GGX/anisotropic rough dielectric (the kernel's "
                        "is isotropic GGX)")
+    rough_tex = scene.mat_tex[:, 1].detach().cpu().numpy() >= 0
+    if (rough_tex & np.isin(mp[:, 12], (MAT_ROUGH_CONDUCTOR,
+                                        MAT_ROUGH_DIELECTRIC))).any():
+        return False, ("roughness-textured rough conductor or dielectric: "
+                       "the texture sets α_u only, so the eager GGX is "
+                       "anisotropic where the kernel's is isotropic")
     return True, ""
 
 

@@ -24,6 +24,7 @@ from ..core.math import Frame, dot, normalize, reflect, refract_local
 from ..core.warp import (INV_PI, square_to_cosine_hemisphere,
                          square_to_cosine_hemisphere_pdf)
 from ..scene import scene as S
+from ..texture.texture import MAX_MIPS, eval_texture
 from . import rtrans
 
 LEAF_FAMILIES = (S.MAT_DIFFUSE, S.MAT_CONDUCTOR, S.MAT_ROUGH_CONDUCTOR,
@@ -748,13 +749,51 @@ def _has_rough_coat(families):
     return families is None or S.MAT_ROUGH_COATING in families
 
 
-def resolve_material(scene: S.SceneData, mat_id, families=None) -> MatInfo:
+def _tex_override(scene: S.SceneData, params, uv, lod_extent=None):
+    """Texture resolution of material rows params [N, 24] at the hits' uv
+    [N, 2] (None: rows as they are): uv written into slots 22-23, the
+    albedo texture (slot 13) into columns 0-2 and the roughness texture's
+    first channel (slot 14) into column 9 (α_u only, as the JAX
+    package does). lod_extent [N]: the uv footprint, converted per
+    texture to a mip level (trilinear); None: the finest level."""
+    if uv is None:
+        return params
+    params = torch.cat([params[:, :22], uv, params[:, 24:]], dim=1)
+    if scene.tex_meta.shape[0] <= 1:
+        return params
+
+    def lookup(slot):
+        tex = params[:, slot].to(torch.int32)
+        tid = torch.clamp(tex, min=0)
+        lod = None
+        if lod_extent is not None:
+            meta = scene.tex_meta[(tid * MAX_MIPS).long()]
+            size = torch.maximum(meta[:, 1], meta[:, 2]).to(uv.dtype)
+            lod = torch.clamp(torch.log2(torch.clamp(lod_extent * size,
+                                                     min=1.0)),
+                              0.0, MAX_MIPS - 1.0)
+        return tex >= 0, eval_texture(scene, tid, uv, lod)
+
+    has_alb, albedo = lookup(13)
+    albedo = torch.where(has_alb[:, None], albedo, params[:, 0:3])
+    has_r, rough = lookup(14)
+    rough = torch.where(has_r, rough[:, 0], params[:, 9])
+    return torch.cat([albedo, params[:, 3:9], rough[:, None],
+                      params[:, 10:]], dim=1)
+
+
+def resolve_material(scene: S.SceneData, mat_id, uv=None, families=None,
+                     lod_extent=None) -> MatInfo:
     """Gather the material rows (mat_id -1 reads row 0, as in the JAX
-    package; such lanes are masked by the caller) and, when `families`
+    package; such lanes are masked by the caller), resolved at the hits'
+    uv [N, 2] (_tex_override; None: untextured), and, when `families`
     holds a composite code (None: all), each composite's child rows
-    through param slots 18 and 19 and its mixture weight (slot 20); leaf
-    lanes alias their own row with weight 1."""
-    params = scene.mat_params[torch.clamp(mat_id, min=0)]
+    through param slots 18 and 19, resolved alike, and its mixture weight
+    (slot 20, or the first channel of the weight texture of slot 21);
+    leaf lanes alias their own row with weight 1."""
+    params = _tex_override(scene, scene.mat_params[torch.clamp(mat_id,
+                                                               min=0)],
+                           uv, lod_extent)
     mtype = params[:, 12].long()
     if not _has_composite(families):
         return MatInfo(mtype, params, mtype, params, mtype, params,
@@ -762,13 +801,19 @@ def resolve_material(scene: S.SceneData, mat_id, families=None) -> MatInfo:
 
     def child(slot):
         crow = scene.mat_params[torch.clamp(params[:, slot].long(), min=0)]
+        crow = _tex_override(scene, crow, uv, lod_extent)
         return crow[:, 12].long(), crow
 
     is_comp = ((mtype == S.MAT_MIXTURE) | (mtype == S.MAT_COATING)
                | (mtype == S.MAT_ROUGH_COATING))
     ta, pa = child(18)
     tb, pb = child(19)
-    w = torch.where(mtype == S.MAT_MIXTURE, params[:, 20], 1.0)
+    w = params[:, 20]
+    if uv is not None and scene.tex_meta.shape[0] > 1:
+        wtex = params[:, 21].to(torch.int32)
+        tw = eval_texture(scene, torch.clamp(wtex, min=0), uv)[:, 0]
+        w = torch.where(wtex >= 0, tw, w)
+    w = torch.where(mtype == S.MAT_MIXTURE, w, 1.0)
     return MatInfo(mtype, params, torch.where(is_comp, ta, mtype),
                    torch.where(is_comp[:, None], pa, params),
                    torch.where(is_comp, tb, mtype),
@@ -776,9 +821,38 @@ def resolve_material(scene: S.SceneData, mat_id, families=None) -> MatInfo:
 
 
 def perturb_shading_frame(scene: S.SceneData, mat: MatInfo, frame, uv):
-    """Normal/bump-map frame perturbation: the identity, since the port's
-    scenes carry no normal or bump maps (compile_scene rejects them)."""
-    return frame
+    """Normal- and bump-map frame perturbation (ref: src/bsdfs/
+    normalmap.cpp, bumpmap.cpp), before the BSDF dispatch: texture slot
+    16 holds a tangent-space normal map (slot 17, the bump scale, 0) or a
+    height map (scale > 0, whose gradient is taken by forward differences
+    of 1e-3 in u and v). Returns the new frame (s, t, n); lanes without a
+    map keep theirs."""
+    if scene.tex_meta.shape[0] <= 1 or uv is None:
+        return frame
+    ntex = mat.params[:, 16].to(torch.int32)
+    has = (ntex >= 0)[:, None]
+    tid = torch.clamp(ntex, min=0)
+    s, t, n = frame
+    tv = eval_texture(scene, tid, uv)
+    # normal map: [0, 1]³ decoded to a tangent-space normal
+    nl = tv * 2.0 - 1.0
+    # bump map: forward differences of the height channel
+    eps = 1e-3
+    step = lambda du, dv: eval_texture(
+        scene, tid, uv + torch.tensor([du, dv], dtype=uv.dtype,
+                                      device=uv.device))[:, 0]
+    du = (step(eps, 0.0) - tv[:, 0]) / eps
+    dv = (step(0.0, eps) - tv[:, 0]) / eps
+    scale = mat.params[:, 17]
+    nb = torch.stack([-du * scale, -dv * scale, torch.ones_like(du)], -1)
+    nloc = torch.where((scale > 0.0)[:, None], nb, nl)
+    nloc = nloc / torch.clamp(torch.sqrt(torch.sum(nloc * nloc, dim=-1,
+                                                   keepdim=True)), min=1e-6)
+    n_new = s * nloc[:, 0:1] + t * nloc[:, 1:2] + n * nloc[:, 2:3]
+    n_new = torch.where(has, n_new, n)
+    s2, t2, n2 = Frame.from_normal(n_new)
+    return (torch.where(has, s2, s), torch.where(has, t2, t),
+            torch.where(has, n2, n))
 
 
 def _flip_z(v):

@@ -2,7 +2,12 @@
 
 `scene_from_numpy` takes one array per SceneData field (em_pmf as a dict of
 its pmf/cdf/total arrays), for example a compiled JAX scene's fields
-converted with np.asarray, so both packages trace the same arrays.
+converted with np.asarray, so both packages trace the same arrays: the
+texel pool and its meta rows and the environment image's tables (its
+alias table included) come across as they are. The procedural provenance
+of checker and grid textures is not a scene field: it stays the plain
+dict of the scene description (SceneDesc.tex_procs), which
+MegaPathTracer.for_scene takes as it is.
 """
 from __future__ import annotations
 
@@ -23,11 +28,6 @@ def _check_supported(a: dict):
         PORTED_FAMILIES)
     if fams:
         problems.append(f"BSDF families {sorted(fams)}")
-    params = np.asarray(a["mat_params"])
-    if np.any(params[:, [13, 14, 16]] != -1) or np.any(params[:, 17]):
-        problems.append("textures or normal/bump maps")
-    if np.any(np.asarray(a["em_type"]) == S.EM_ENVMAP):
-        problems.append("envmap emitters")
     if bool(np.asarray(a["has_medium"])):
         # a homogeneous medium only: a one-voxel grid and all-zero SGGX
         # and fiber rows (the JAX megakernel gate, integrator/mega.py)

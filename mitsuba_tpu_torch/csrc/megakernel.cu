@@ -10,8 +10,9 @@
 // (:606-1384): pinhole or thin-lens camera, flat or smooth shading
 // normals, the 14 leaf BSDF families of bsdf_common.cuh with the
 // two-sided adapter and its composites over leaf children, area, point,
-// spot and directional emitters and the constant environment, and the
-// global homogeneous medium, without textures. Each kernel is a template
+// spot and directional emitters and the constant environment, the global
+// homogeneous medium, and the closed-form checker or grid albedo of
+// textures with procedural provenance. Each kernel is a template
 // on kExt: the instantiation without it has the area emitters, leaf
 // families and pinhole only, so scenes that need no more run the code
 // (and the registers) they ran before; the launch picks kExt from the
@@ -21,7 +22,16 @@
 // surface's, and a lane that scatters takes HG-phase NEE and an HG
 // continuation from the scatter point (VolPathTracer's bounce, with the
 // JAX megakernel's forms of the medium terms: accel/megakernel.py
-// medium_segment, hg_value, hg_sample_kernel).
+// medium_segment, hg_value, hg_sample_kernel). The procedural albedo is a
+// template parameter of its own, kTex, on top of kExt, which the launch
+// picks when the tables carry one (MegaTables.textured): a lane whose
+// material row names a checker or grid texture (TEXROW) evaluates it at
+// the hit's uv (proc_albedo) and shades with a copy of its row, in a local
+// array, whose columns 0-2 hold that albedo. As a runtime branch of kExt
+// the copy and its generic row pointer took the kExt instantiations from
+// 163-166 to 172-179 registers (mega_persistent), past the 168 that
+// leave three blocks an SM; as a template the scenes without textures
+// keep the kExt code they had.
 //
 // Design: one thread per lane. The path state lives in registers for the
 // whole launch; scene tables (per-triangle attributes, materials, emitter
@@ -91,6 +101,7 @@ constexpr int kState = 16;    // rows of the bounce state
 constexpr int kPState = 24;   // rows of the persistent state
 constexpr int kAttr = 25;     // per-triangle attribute row
 constexpr int kMat = 69;      // material row (accel/megakernel.py N_MAT)
+constexpr int kTexRow = 24;   // its procedural-texture columns (TEXROW)
 constexpr int kEmRow = 24;    // emissive-triangle row
 constexpr int kEmMeta = 16;   // emitter row
 constexpr uint32_t kSensorDims = 4, kDimsPerBounce = 8;
@@ -269,6 +280,55 @@ __device__ __forceinline__ V3 hg_sample(float g, V3 d, float2 u, float& pdf) {
   return wo;
 }
 
+// ---- the procedural albedo (accel/megakernel.py proc_albedo) ------------
+
+// 1 where the texel at (xw, yw) of the rasterized checker or grid holds
+// color0, else 0: the cell's parity, or the grid-line test (rounding half
+// to even, as torch.round)
+__device__ __forceinline__ float proc_c0_weight(bool grid, float xw, float yw,
+                                                float tres, float ttil,
+                                                float lw) {
+  if (grid) {
+    const float ax = ((xw + 0.5f) / tres) * ttil;
+    const float ay = ((yw + 0.5f) / tres) * ttil;
+    return fabsf(ax - rintf(ax)) < lw || fabsf(ay - rintf(ay)) < lw ? 1.f
+                                                                    : 0.f;
+  }
+  const float cxy = floorf((xw * ttil) / tres) + floorf((yw * ttil) / tres);
+  return 1.f - (cxy - 2.f * floorf(cxy * 0.5f));
+}
+
+// The bilinear checker or grid albedo of material row m at (u, v): the
+// level-0 lookup of the rasterized bitmap (texel centres at -0.5, v
+// flipped, repeat wrap) with proc_c0_weight in place of each corner's
+// texel
+__device__ __forceinline__ void proc_albedo(const float* m, float u, float v,
+                                            float alb[3]) {
+  const float* t = m + kTexRow;
+  const float tres = clamp_min(__ldg(t + 7), 1.f);
+  const float ttil = clamp_min(__ldg(t + 8), 1.f);
+  const float lw = __ldg(t + 9) * ttil;
+  const bool grid = __ldg(t) == 1.f;
+  const float fx = u * tres - 0.5f;
+  const float fy = (1.f - v) * tres - 0.5f;
+  const float x0 = floorf(fx), y0 = floorf(fy);
+  const float tx = fx - x0, ty = fy - y0;
+  const float x1 = x0 + 1.f, y1 = y0 + 1.f;
+  const float xw0 = x0 - floorf(x0 / tres) * tres;
+  const float xw1 = x1 - floorf(x1 / tres) * tres;
+  const float yw0 = y0 - floorf(y0 / tres) * tres;
+  const float yw1 = y1 - floorf(y1 / tres) * tres;
+  const float s0w =
+      (((proc_c0_weight(grid, xw0, yw0, tres, ttil, lw) * (1.f - tx))
+        * (1.f - ty)
+        + (proc_c0_weight(grid, xw1, yw0, tres, ttil, lw) * tx) * (1.f - ty))
+       + (proc_c0_weight(grid, xw0, yw1, tres, ttil, lw) * (1.f - tx)) * ty)
+      + (proc_c0_weight(grid, xw1, yw1, tres, ttil, lw) * tx) * ty;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch)
+    alb[ch] = __ldg(t + 1 + ch) * s0w + __ldg(t + 4 + ch) * (1.f - s0w);
+}
+
 // What a bounce carries from its closest hit across the shadow trace.
 // (Under kExt M may be a composite, whose children the helpers of
 // bsdf_common.cuh read from the table.)
@@ -287,12 +347,14 @@ struct Vertex {
 
 // The bounce up to its shadow ray, for an active lane: the hit record
 // (accel/dense.py fill_intersection), the emitter hit, the NEE sample and
-// the BSDF toward it.
-template <bool kExt>
+// the BSDF toward it. Mt: room for a material row (kTex), which a
+// procedurally textured lane fills and shades with.
+template <bool kExt, bool kTex>
 __device__ __forceinline__ Vertex bounce_front(const Tables& T, State& s,
                                                const Hit& h, uint32_t seed,
                                                uint32_t pixel, uint32_t samp,
-                                               int bounce, int max_depth) {
+                                               int bounce, int max_depth,
+                                               float* Mt) {
   Vertex v;
   const uint32_t dim = kSensorDims + static_cast<uint32_t>(bounce)
                        * kDimsPerBounce;
@@ -375,11 +437,35 @@ __device__ __forceinline__ Vertex bounce_front(const Tables& T, State& s,
 
   const int depth = bounce + 2;   // path vertices: camera = 1, this hit
   v.M = T.mat + max(mat_id, 0) * kMat;
+  // ---- the procedural albedo at the hit's uv (the corners rebuilt as
+  // uv0 + Δ and interpolated as the shading normal is), into columns 0-2
+  // of a copy of the row: its leaf columns, and a rough plastic's
+  // transmittance rows ----------------------------------------------------
+  if (kTex && __ldg(v.M + kTexRow) >= 0.f) {
+    const float u0 = __ldg(A + 19), w0 = __ldg(A + 20);
+    float alb[3];
+    proc_albedo(v.M,
+                (u0 * b0 + (u0 + __ldg(A + 21)) * h.u)
+                    + (u0 + __ldg(A + 23)) * h.v,
+                (w0 * b0 + (w0 + __ldg(A + 22)) * h.u)
+                    + (w0 + __ldg(A + 24)) * h.v,
+                alb);
+    for (int j = 3; j < kTexRow; ++j) Mt[j] = __ldg(v.M + j);
+    if (Mt[12] == mitsuba_bsdf::kMatRoughPlastic)
+      for (int j = mitsuba_bsdf::kRtRow; j < kMat; ++j)
+        Mt[j] = __ldg(v.M + j);
+    Mt[0] = alb[0];
+    Mt[1] = alb[1];
+    Mt[2] = alb[2];
+    v.M = Mt;
+  }
   coordinate_system(v.ns, v.fs, v.ft);
   v.wi = to_local(v.fs, v.ft, v.ns, V3{-s.d.x, -s.d.y, -s.d.z});
   // the two-sided adapter mirrors back-side incidence into z > 0; the
-  // light direction's z and the sampled direction's z follow it
-  v.fsign = __ldg(v.M + 15) > 0.5f && v.wi.z < 0.f ? -1.f : 1.f;
+  // light direction's z and the sampled direction's z follow it (under
+  // kTex the row may be the copy: a plain load)
+  v.fsign = (kTex ? v.M[15] : __ldg(v.M + 15)) > 0.5f && v.wi.z < 0.f
+                ? -1.f : 1.f;
   v.wiz = v.wi.z * v.fsign;
 
   // ---- next-event estimation from the event point (the scatter point
@@ -487,9 +573,10 @@ __device__ __forceinline__ void bounce_back(const Tables& T, const Vertex& v,
 // NEE contributes. A lane inactive on entry is left unchanged. traced:
 // this lane traced a closest-hit ray; shadow: it attempted a shadow ray.
 // kCoop: mitsuba_walk::coop_walk, which the launch picks; kExt: the
-// scene has non-area lights or composites (or the camera a thin lens),
-// MegaTables.ext, which the launch picks too.
-template <bool kCoop, bool kExt>
+// scene has non-area lights, composites or a medium (or the camera a thin
+// lens), MegaTables.ext, and kTex (with kExt) procedural textures,
+// MegaTables.textured, which the launch picks too.
+template <bool kCoop, bool kExt, bool kTex>
 __device__ __forceinline__ void path_bounce(const Tables& T, State& s,
                                             uint32_t seed, uint32_t pixel,
                                             uint32_t samp, int bounce,
@@ -499,9 +586,11 @@ __device__ __forceinline__ void path_bounce(const Tables& T, State& s,
   const Hit h = trace_ray_warp<false, kCoop>(
       T.woop, T.aabb, T.tris, active,
       Ray{s.o.x, s.o.y, s.o.z, s.d.x, s.d.y, s.d.z, ray_mint(s.o), kMiss});
+  float Mt[kTex ? kMat : 1];   // a textured lane's material row
   Vertex v{};
   if (active)
-    v = bounce_front<kExt>(T, s, h, seed, pixel, samp, bounce, max_depth);
+    v = bounce_front<kExt, kTex>(T, s, h, seed, pixel, samp, bounce,
+                                 max_depth, Mt);
   const bool occluded = trace_ray_warp<true, kCoop>(
       T.woop, T.aabb, T.tris, v.contributes,
       Ray{v.so.x, v.so.y, v.so.z, v.ds.d.x, v.ds.d.y, v.ds.d.z,
@@ -604,7 +693,7 @@ __device__ __forceinline__ void camera_path(const Camera& cam, uint32_t seed,
 // most 255 registers, so they do not spill either.
 #define MEGA_BOUNDS __launch_bounds__(128, kExt ? 2 : 4)
 
-template <bool kCoop, bool kExt>
+template <bool kCoop, bool kExt, bool kTex>
 __global__ void MEGA_BOUNDS
 mega_bounce(Tables T, const float* __restrict__ in, float* __restrict__ out,
             const int* __restrict__ pixel, const int* __restrict__ samp,
@@ -614,7 +703,7 @@ mega_bounce(Tables T, const float* __restrict__ in, float* __restrict__ out,
   State s{};
   if (lane_ok) s = load_state(in, n, i);
   bool traced, shadow;
-  path_bounce<kCoop, kExt>(T, s, seed,
+  path_bounce<kCoop, kExt, kTex>(T, s, seed,
                            lane_ok ? static_cast<uint32_t>(pixel[i]) : 0u,
                            lane_ok ? static_cast<uint32_t>(samp[i]) : 0u,
                            bounce, max_depth, rr_depth, traced, shadow);
@@ -624,7 +713,7 @@ mega_bounce(Tables T, const float* __restrict__ in, float* __restrict__ out,
   out[(kState + 1) * n + i] = shadow ? 1.f : 0.f;
 }
 
-template <bool kCoop, bool kExt>
+template <bool kCoop, bool kExt, bool kTex>
 __global__ void MEGA_BOUNDS
 mega_path(Tables T, const float* __restrict__ in, float* __restrict__ out,
           const int* __restrict__ pixel, const int* __restrict__ samp, int n,
@@ -641,8 +730,8 @@ mega_path(Tables T, const float* __restrict__ in, float* __restrict__ out,
   for (int b = 0; __any_sync(mitsuba_walk::kFullMask,
                              b < n_bounces && s.active > 0.5f); ++b) {
     bool traced, shadow;
-    path_bounce<kCoop, kExt>(T, s, seed, px, sp, b, max_depth, rr_depth,
-                             traced, shadow);
+    path_bounce<kCoop, kExt, kTex>(T, s, seed, px, sp, b, max_depth,
+                                   rr_depth, traced, shadow);
     n_traced += traced;
     n_shadow += shadow;
   }
@@ -652,7 +741,7 @@ mega_path(Tables T, const float* __restrict__ in, float* __restrict__ out,
   out[(kState + 1) * n + i] = static_cast<float>(n_shadow);
 }
 
-template <bool kCoop, bool kExt>
+template <bool kCoop, bool kExt, bool kTex>
 __global__ void MEGA_BOUNDS
 mega_persistent(Tables T, const float* __restrict__ in,
                 float* __restrict__ out, const int* __restrict__ pixel,
@@ -683,7 +772,7 @@ mega_persistent(Tables T, const float* __restrict__ in,
                               it < iter_cap && s.active > 0.5f); ++it) {
     const bool running = s.active > 0.5f;
     bool traced, shadow;
-    path_bounce<kCoop, kExt>(T, s, seed, px,
+    path_bounce<kCoop, kExt, kTex>(T, s, seed, px,
                              static_cast<uint32_t>(s0 + done), bounce,
                              max_depth, rr_depth, traced, shadow);
     if (!running) continue;
@@ -741,21 +830,24 @@ constexpr int kThreads = 128;
 // array of the medium's 8 floats or null; n_tris is the count of real
 // triangles (the table's padding follows them); env is the constant
 // environment's emitter row (-1: none); ext picks the kExt instantiations
-// (MegaTables.ext: set with a medium too, or a thin lens); each launches
-// on `stream` and returns the cudaError_t of the launch.
+// (MegaTables.ext: set with a medium or procedural textures too, or a
+// thin lens); tex picks the kTex ones (MegaTables.textured); each
+// launches on `stream` and returns the cudaError_t of the launch.
 #define MEGA_TABLE_PARAMS                                                     \
   const void *woop, const void *aabb, int n_clusters, int n_tris,             \
       const void *attr, const void *mat, const void *em_rows, int et_real,    \
       const void *em_meta, const void *em_cdf, int n_em, int env, int ext,    \
-      const void *med
+      const void *med, int tex
 #define MEGA_TABLES                                                          \
   make_tables(woop, aabb, n_clusters, n_tris, attr, mat, em_rows, et_real,   \
               em_meta, em_cdf, n_em, env, med)
-// the instantiation of `kernel` for the walk coop_walk picks and ext
+// the instantiation of `kernel` for the walk coop_walk picks, ext and tex
+#define MEGA_EXT(kernel, coop)                                               \
+  (tex ? kernel<coop, true, true>                                            \
+       : (ext ? kernel<coop, true, false> : kernel<coop, false, false>))
 #define MEGA_WALK(kernel, tables)                                            \
-  (mitsuba_walk::coop_walk((tables).tris)                                    \
-       ? (ext ? kernel<true, true> : kernel<true, false>)                    \
-       : (ext ? kernel<false, true> : kernel<false, false>))
+  (mitsuba_walk::coop_walk((tables).tris) ? MEGA_EXT(kernel, true)           \
+                                          : MEGA_EXT(kernel, false))
 
 extern "C" int mitsuba_mega_bounce(MEGA_TABLE_PARAMS, const void* state_in,
                                    void* state_out, const void* pixel,

@@ -1,5 +1,5 @@
 """Emitter sampling for next-event estimation (port of
-mitsuba_tpu/emitter/emitter.py without the image-based environment).
+mitsuba_tpu/emitter/emitter.py).
 
 The emitter is picked ∝ sampling weight with sample reuse. An area
 emitter's triangle is picked from its area CDF, stored "globalized"
@@ -7,8 +7,9 @@ emitter's triangle is picked from its area CDF, stored "globalized"
 emitters; point and spot lights (spot: linear falloff between beam width
 and cutoff) and directional lights are delta emitters, whose MIS weight
 the integrator forces to 1; the constant environment is sampled
-uniformly over the sphere and seen by escaped rays. compile_scene and
-convert.scene_from_numpy reject envmaps.
+uniformly over the sphere, the image-based one (emitter/envmap.py) by
+its alias table, and escaped rays see either. The envmap's terms run
+only for a scene that carries an environment image (envmap.has_envmap).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from ..core.warp import (INV_FOUR_PI, square_to_uniform_sphere,
                          square_to_uniform_triangle)
 from ..scene import scene as S
 from ..scene.scene import SceneData
+from .envmap import eval_env_dir, has_envmap, pdf_env_dir, sample_env
 
 # the "distance" of environment and directional samples (finite: the JAX
 # package keeps inf out of its autodiff)
@@ -85,8 +87,16 @@ def sample_direct(scene: SceneData, ref_p, u_sel, u2) -> DirectSample:
     d_point = to_p / pdist[:, None]
     val_point = em_rad / pdist2[:, None]
 
-    # ---- constant environment: uniform sphere ---------------------------
+    # ---- environment: uniform sphere (constant) or the image's alias
+    # table (envmap) --------------------------------------------------------
     d_env = square_to_uniform_sphere(u2)
+    pdf_env = INV_FOUR_PI
+    envmap = has_envmap(scene)
+    if envmap:
+        is_envmap = em_type == S.EM_ENVMAP
+        d_map, pdf_map, _ = sample_env(scene, u2)
+        d_env = torch.where(is_envmap[:, None], d_map, d_env)
+        pdf_env = torch.where(is_envmap, pdf_map, INV_FOUR_PI)
 
     is_area = em_type == S.EM_AREA
     is_point = (em_type == S.EM_POINT) | (em_type == S.EM_SPOT)
@@ -109,15 +119,17 @@ def sample_direct(scene: SceneData, ref_p, u_sel, u2) -> DirectSample:
     dist = torch.where(is_area, dist_area,
                        torch.where(is_point, pdist, ENV_DIST))
     pdf_sa = torch.where(is_area, pdf_area,
-                         torch.where(is_delta, 1.0, INV_FOUR_PI))
+                         torch.where(is_delta, 1.0, pdf_env))
     # the emitter pick folds into the pdf (scene.cpp:846)
     pdf_total = pdf_sa * em_pmf_val
+    radiance = torch.where(is_envmap[:, None], eval_env_dir(scene, d),
+                           em_rad) if envmap else em_rad
     val_delta = torch.where(is_directional[:, None], em_rad,
                             val_point * spot_scale[:, None])
     value = torch.where(
         is_delta[:, None],
         val_delta / torch.clamp(em_pmf_val, min=1e-12)[:, None],
-        safe_div(em_rad, pdf_total[:, None]))
+        safe_div(radiance, pdf_total[:, None]))
     value = torch.where((pdf_total > 0)[:, None], value, 0.0)
     return DirectSample(
         d=d, dist=dist, pdf=torch.where(is_delta, em_pmf_val, pdf_total),
@@ -155,19 +167,27 @@ def _env(scene: SceneData):
 
 def eval_env(scene: SceneData, d):
     """Environment radiance along escaped directions (ref:
-    Scene::evalEnvironment): the constant emitter's, else 0."""
+    Scene::evalEnvironment): the constant emitter's or the image's, else
+    0."""
     if scene.n_emitters == 0:
         return torch.zeros_like(d)
     has_env, eid = _env(scene)
     rad = scene.em_radiance[eid].expand(d.shape)
+    if has_envmap(scene):
+        rad = torch.where(scene.em_type[eid] == S.EM_ENVMAP,
+                          eval_env_dir(scene, d), rad)
     return torch.where(has_env, rad, 0.0)
 
 
 def pdf_direct_env(scene: SceneData, d):
-    """NEE pdf of an escaped ray's direction: the constant environment's
-    uniform-sphere pdf times its pick probability, else 0."""
+    """NEE pdf of an escaped ray's direction: the environment's
+    (uniform-sphere or envmap) pdf times its pick probability, else 0."""
     if scene.n_emitters == 0:
         return torch.zeros_like(d[:, 0])
     has_env, eid = _env(scene)
+    if has_envmap(scene):
+        pdf_dir = torch.where(scene.em_type[eid] == S.EM_ENVMAP,
+                              pdf_env_dir(scene, d), INV_FOUR_PI)
+        return torch.where(has_env, pdf_dir * scene.em_pmf.pmf[eid], 0.0)
     pdf = INV_FOUR_PI * scene.em_pmf.pmf[eid]
     return torch.where(has_env, pdf, 0.0).expand(d.shape[:1])

@@ -71,7 +71,7 @@ class DirectIntegrator(PathTracer):
         le = eval_area(scene, its.em_id, cos_surf)
         L = L + torch.where(hit[:, None], le, 0.0)
 
-        mat = resolve_material(scene, its.mat_id, fams)
+        mat = resolve_material(scene, its.mat_id, its.uv, fams)
         frame = perturb_shading_frame(
             scene, mat, Frame.from_normal(its.ns), its.uv)
         wi_local = Frame.to_local(frame, -d)

@@ -1,23 +1,26 @@
 """MegaPathTracer: the path megakernel integrator (port of
-mitsuba_tpu/integrator/mega.py for surface scenes).
+mitsuba_tpu/integrator/mega.py).
 
 A drop-in replacement for PathTracer on scenes the megakernel covers:
 pinhole or thin-lens perspective camera, flat or smooth shading normals,
 the 14 leaf BSDF families (isotropic GGX where microfacet) with the
 two-sided adapter, the mixture, blend, mask, coating and rough-coating
 composites over leaf children, area, point, spot and directional
-emitters and at most one constant environment, no textures, box film:
-the JAX gate, less its procedural textures. MegaVolPathTracer adds the
-global homogeneous medium (VolPathTracer's estimator). `supports()`
-reports whether a scene qualifies; `for_scene(scene, ...)` packs the
-scene tables once. On CUDA
+emitters and at most one constant environment, albedo textures with
+checker or grid provenance (evaluated in closed form: pass the scene
+description's tex_procs to supports and for_scene), box film: the JAX
+gate. MegaVolPathTracer adds the global homogeneous medium
+(VolPathTracer's estimator). `supports()` reports whether a scene
+qualifies; `for_scene(scene, ...)` packs the scene tables once. On CUDA
 tensors li_stats runs whole paths in one launch of the mega_path kernel and
 render_persistent renders every pixel's spp paths in one launch of
 mega_persistent; on CPU tensors both run the plain versions
 (accel/megakernel.py). Estimator and sample streams are PathTracer's
-(VolPathTracer's for MegaVolPathTracer).
+(VolPathTracer's for MegaVolPathTracer). Bitmap textures, roughness,
+normal and bump maps and envmaps stay on the eager path, as in the JAX
+package.
 
-Not ported yet: procedural textures and render_persistent_sharded.
+Not ported yet: render_persistent_sharded.
 """
 from __future__ import annotations
 
@@ -60,14 +63,15 @@ class MegaPathTracer(PathTracer):
 
     @staticmethod
     def supports(scene: SceneData, camera=None, film=None,
-                 allow_medium=False) -> tuple[bool, str]:
+                 allow_medium=False, tex_procs=None) -> tuple[bool, str]:
         """(ok, reason): can this scene, camera and film run on the
         megakernel with results matching PathTracer (VolPathTracer when
         allow_medium admits a homogeneous medium) and a box-filter Film?
         Where the JAX package refuses a scene this refuses it too, with
-        the JAX reason; where the JAX package accepts a feature the port
-        lacks, the reason is "<feature> not ported". The JAX argument
-        tex_procs belongs to a part not ported (procedural textures)."""
+        the JAX reason. tex_procs: the scene description's texture slot →
+        procedural provenance (SceneDesc.tex_procs); an albedo texture is
+        admitted where its slot has one, and roughness, normal and bump
+        maps are refused."""
         em_types = [int(t) for t in to_numpy(scene.em_type)]
         bad = set(em_types) - _REF_EM_TYPES
         if em_types.count(S.EM_CONSTANT) > 1 or bad:
@@ -109,9 +113,14 @@ class MegaPathTracer(PathTracer):
             if any(x is not None and bool((x != 0).any())
                    for x in (scene.med_sggx, scene.med_fiber)):
                 return False, "anisotropic (SGGX/fiber) medium"
-        if (to_numpy(scene.mat_tex) >= 0).any() or (mp[:, 16] >= 0).any():
-            return False, ("textured material (procedural checker/grid "
-                           "textures not ported)")
+        # an albedo texture runs in closed form where its slot has
+        # checker/grid provenance; roughness and normal/bump maps stay
+        # on the eager path
+        tex = to_numpy(scene.mat_tex)
+        procs = tex_procs or {}
+        if (not all(slot < 0 or slot in procs for slot in tex[:, 0])
+                or (tex[:, 1] >= 0).any() or (mp[:, 16] >= 0).any()):
+            return False, "textured material"
         areas = to_numpy(scene.tri_area)
         n_real = int(np.max(np.nonzero(areas > 0)[0]) + 1) if \
             (areas > 0).any() else 1
@@ -125,15 +134,18 @@ class MegaPathTracer(PathTracer):
 
     @classmethod
     def for_scene(cls, scene: SceneData, max_depth: int = 8,
-                  rr_depth: int = 5) -> "MegaPathTracer":
+                  rr_depth: int = 5, tex_procs=None) -> "MegaPathTracer":
         """Pack the scene's tables on its device (the GPU for a scene
-        compiled with the default device). Raises NotImplementedError,
-        with supports()'s reason, for a scene outside the subset."""
-        ok, reason = cls.supports(scene)
+        compiled with the default device), with the procedural albedo
+        textures of tex_procs (SceneDesc.tex_procs). Raises
+        NotImplementedError, with supports()'s reason, for a scene
+        outside the subset."""
+        ok, reason = cls.supports(scene, tex_procs=tex_procs)
         if not ok:
             raise NotImplementedError(f"{cls.__name__}: {reason}")
         return cls(max_depth=max_depth, rr_depth=rr_depth,
-                   tables=build_mega_tables(scene, cls._medium(scene)))
+                   tables=build_mega_tables(scene, cls._medium(scene),
+                                            tex_procs))
 
     @staticmethod
     def _medium(scene):
@@ -170,9 +182,10 @@ class MegaVolPathTracer(MegaPathTracer):
 
     @staticmethod
     def supports(scene: SceneData, camera=None, film=None,
-                 allow_medium=True) -> tuple[bool, str]:
+                 allow_medium=True, tex_procs=None) -> tuple[bool, str]:
         return MegaPathTracer.supports(scene, camera, film,
-                                       allow_medium=True)
+                                       allow_medium=True,
+                                       tex_procs=tex_procs)
 
     @staticmethod
     def _medium(scene):

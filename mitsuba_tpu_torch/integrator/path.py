@@ -233,7 +233,7 @@ class PathTracer:
                             throughput * le * w_hit[:, None], 0.0)
 
         depth = bounce + 2      # path vertices: camera = 1, this hit
-        mat = resolve_material(scene, its.mat_id, self.families)
+        mat = resolve_material(scene, its.mat_id, its.uv, self.families)
         frame = perturb_shading_frame(
             scene, mat, Frame.from_normal(its.ns), its.uv)
 

@@ -1,9 +1,11 @@
 """Scene builder: declarative scene description → compiled SceneData on one
 device (port of mitsuba_tpu/scene/builder.py, the part the port renders:
 triangle meshes, the 14 leaf BSDF families with the two-sided adapter, the
-composites mixturebsdf, blendbsdf, mask, coating and roughcoating, area,
-point, spot, collimated and directional emitters and the constant
-environment).
+composites mixturebsdf, blendbsdf, mask, coating and roughcoating, bitmap
+textures (albedo, roughness, mixture weight, normal and bump maps, with
+the procedural provenance of texture.checkerboard and grid_texture),
+area, point, spot, collimated and directional emitters, the constant
+environment and the image-based one (EnvmapLight)).
 
 All transform work is host-side float64; device tensors are float32, as in
 the JAX package, so both builders produce the same arrays. A description
@@ -25,6 +27,8 @@ from ..accel.trace import (ORDER_MAX_CLUSTERS, TRIS_PER_CLUSTER,
 from ..core import transform as tf
 from ..core.distribution import Discrete1D
 from ..device import resolve_device
+from ..emitter.envmap import build_env_tables
+from ..texture.texture import pack_textures
 from . import scene as S
 from .shapes import Mesh
 
@@ -35,7 +39,9 @@ class Material:
     optionally two-sided; parameters and defaults are the JAX builder's
     (each plugin's Properties defaults). A composite names its children
     by material index (child_a, child_b); a mask's second child is an
-    implicit null material that compile_scene appends."""
+    implicit null material that compile_scene appends. The *_texture
+    fields name SceneDesc.add_texture slots (-1: none); normal_texture is
+    a tangent-space normal map, or with bump_scale > 0 a height map."""
     kind: str = "diffuse"
     albedo: Sequence[float] = (0.5, 0.5, 0.5)       # diffuse/roughdiffuse
     eta: Sequence[float] | float = (0.2004, 0.9240, 1.1022)  # conductor (Cu)
@@ -88,13 +94,6 @@ class Material:
             raise NotImplementedError(
                 f"material kind {self.kind!r}: the port has "
                 f"{sorted(self._KINDS)}")
-        for name, unset in (("albedo_texture", -1), ("roughness_texture", -1),
-                            ("normal_texture", -1), ("bump_scale", 0.0),
-                            ("weight_texture", -1)):
-            if getattr(self, name) != unset:
-                raise NotImplementedError(
-                    f"material {name}: textures and normal/bump maps are "
-                    "not ported")
         code = self._KINDS[self.kind]
         p = np.zeros(S.N_MAT_PARAMS, np.float32)
         dist = 1.0 if self.distribution == "ggx" else 0.0
@@ -148,12 +147,15 @@ class Material:
             p[4] = 1.0
             p[9], p[11] = self.alpha, dist
             p[18] = float(self.child_a)
+        tex = np.array([self.albedo_texture, self.roughness_texture],
+                       np.int32)
         # dispatch metadata packed into the row (scene.py layout)
         p[12] = float(code)
-        p[13], p[14] = -1.0, -1.0
+        p[13], p[14] = float(tex[0]), float(tex[1])
         p[15] = float(self.two_sided)
-        p[16] = -1.0
-        return code, p, np.array([-1, -1], np.int32)
+        p[16] = float(self.normal_texture)
+        p[17] = self.bump_scale
+        return code, p, tex
 
 
 @dataclass
@@ -214,6 +216,15 @@ class ConstantLight:
 
 
 @dataclass
+class EnvmapLight:
+    """Image-based lat-long environment emitter (ref: src/emitters/
+    envmap.cpp). image: [H, W, 3] HDR numpy array, scaled by `scale`."""
+    image: np.ndarray = None
+    scale: float = 1.0
+    sampling_weight: float = 1.0
+
+
+@dataclass
 class Medium:
     """Single global homogeneous medium (ref: src/medium/homogeneous.cpp).
     `bound` = medium extent along any ray (vacuum beyond); stands in for
@@ -233,9 +244,10 @@ class Medium:
 
 @dataclass
 class SceneDesc:
-    """envmap: an image-based environment is not ported, and
-    compile_scene raises for one. medium: one global homogeneous
-    Medium, or None."""
+    """medium: one global homogeneous Medium, or None. textures: numpy
+    [H, W, 3] (or [H, W]) images, each a texture slot; tex_procs: slot →
+    the procedural provenance (texture.py ProcImage.proc) that
+    add_texture recorded, for MegaPathTracer.for_scene(tex_procs=...)."""
     materials: list = field(default_factory=list)
     shapes: list = field(default_factory=list)
     point_lights: list = field(default_factory=list)
@@ -243,8 +255,20 @@ class SceneDesc:
     collimated_lights: list = field(default_factory=list)
     directional_lights: list = field(default_factory=list)
     constant_light: Optional[ConstantLight] = None
-    envmap: object = None
+    envmap: Optional[EnvmapLight] = None
     medium: Optional[Medium] = None
+    textures: list = field(default_factory=list)
+    tex_procs: dict = field(default_factory=dict)
+
+    def add_texture(self, image) -> int:
+        """Register a bitmap texture; returns its slot for a Material's
+        *_texture fields. A ProcImage's provenance goes to tex_procs."""
+        proc = getattr(image, "proc", None)
+        self.textures.append(np.asarray(image, np.float32))
+        slot = len(self.textures) - 1
+        if proc is not None:
+            self.tex_procs[slot] = proc
+        return slot
 
     def add_material(self, **kw) -> int:
         self.materials.append(Material(**kw))
@@ -318,11 +342,9 @@ def _unit(v):
 def _light_rows(desc: SceneDesc, emitters: list):
     """The emitter rows of the non-area lights after the area emitters
     `emitters`, in the JAX builder's order (point, spot, collimated,
-    directional, constant) and with its values, and the environment
-    emitter's index (-1: none)."""
-    if getattr(desc, "envmap", None) is not None:
-        raise NotImplementedError("EnvmapLight: image-based environments "
-                                  "are not ported")
+    directional, constant, envmap) and with its values, and the
+    environment emitter's index (-1: none; the envmap's where a scene has
+    both environments)."""
     rows = list(emitters)
     delta = lambda t, rad, pos, w, **kw: rows.append(
         {"type": t, "radiance": np.asarray(rad, np.float64),
@@ -352,7 +374,25 @@ def _light_rows(desc: SceneDesc, emitters: list):
         env_id = len(rows)
         delta(S.EM_CONSTANT, desc.constant_light.radiance, np.zeros(3),
               desc.constant_light.sampling_weight)
+    if desc.envmap is not None:
+        env_id = len(rows)
+        delta(S.EM_ENVMAP, np.full(3, desc.envmap.scale), np.zeros(3),
+              desc.envmap.sampling_weight)
     return rows, env_id
+
+
+def _env_rows(envmap, f32):
+    """The environment image's SceneData fields (emitter/envmap.py
+    build_env_tables of the image times its scale, in float32 as the JAX
+    builder scales it), or the 1×1 placeholders and no alias table."""
+    if envmap is None:
+        return dict(env_img=f32(np.zeros((1, 1, 3))),
+                    env_row_cdf=f32([0.0, 1.0]),
+                    env_col_cdf=f32([[0.0, 1.0]]),
+                    env_density=f32(np.ones((1, 1))), env_alias=None)
+    tables = build_env_tables(np.asarray(envmap.image, np.float32)
+                              * envmap.scale)
+    return {k: f32(v) for k, v in tables.items()}
 
 
 def _medium_rows(medium, f32, dev):
@@ -493,6 +533,7 @@ def compile_scene(desc: SceneDesc, cluster_size: int = 512,
                 row[19] = float(null_id)
         mats.append(Material(kind="null").compile())
 
+    tex_data, tex_meta = pack_textures(desc.textures)
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
     i32 = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=dev)
     opt = lambda x, conv: None if x is None else conv(x)
@@ -514,10 +555,8 @@ def compile_scene(desc: SceneDesc, cluster_size: int = 512,
         em_tri_cdfg=f32(em_tri_cdfg), em_tri_data=f32(em_tri_data),
         em_aux=f32(np.reshape([e.get("aux", np.zeros(8)) for e in emitters],
                               (n_em, 8))),
-        tex_data=f32(np.zeros((1, 3))), tex_meta=i32(np.zeros((1, 4))),
-        env_id=i32(env_id), env_img=f32(np.zeros((1, 1, 3))),
-        env_row_cdf=f32([0.0, 1.0]), env_col_cdf=f32([[0.0, 1.0]]),
-        env_density=f32(np.ones((1, 1))),
+        tex_data=f32(tex_data), tex_meta=i32(tex_meta),
+        env_id=i32(env_id), **_env_rows(desc.envmap, f32),
         **_medium_rows(desc.medium, f32, dev),
         med_grid=f32(np.zeros((1, 1, 1))), med_grid_min=f32(np.zeros(3)),
         med_grid_extent=f32(np.ones(3)), med_majorant=f32(0.0),

@@ -36,8 +36,7 @@ MAT_IRAWAN = 18
 MAT_ANISO_ROUGHDIFFUSE = 19
 N_MAT_TYPES = 20
 
-# Emitter type codes (ref: EEmitterType emitter.h:76); the port samples
-# all but EM_ENVMAP.
+# Emitter type codes (ref: EEmitterType emitter.h:76).
 EM_AREA = 0
 EM_POINT = 1
 EM_CONSTANT = 2
@@ -68,8 +67,11 @@ EM_SPOT = 5
 #                   coating + [9] alpha, [11] distribution
 # all:              [12] type code, [13] albedo-tex id, [14] roughness-tex
 #                   id, [15] two-sided flag, [16] normal/bump-map tex id,
-#                   [17] bump scale.
+#                   [17] bump scale (0: slot 16 is a tangent-space normal
+#                   map; > 0: a height map with that scale), [22:24] the
+#                   hit's uv, written per lane by bsdf.resolve_material.
 N_MAT_PARAMS = 24
+# mat_tex[M, 2]: the albedo and roughness texture ids (-1: constant)
 N_MAT_TEX = 2
 
 
@@ -122,15 +124,17 @@ class SceneData(NamedTuple):
     em_tri_cdfg: torch.Tensor  # [ET] emitter index + within-emitter cdf
     em_tri_data: torch.Tensor  # [max(ET,1), 12] packed p0|e1|e2|ng rows
     em_aux: torch.Tensor      # [E, 8]
-    # -- textures (placeholders) -----------------------------------------
-    tex_data: torch.Tensor    # [1, 3]
-    tex_meta: torch.Tensor    # [1, 4] int32
-    # -- environment (the image fields are placeholders) ----------------
-    env_id: torch.Tensor      # scalar int32: the constant emitter, or -1
-    env_img: torch.Tensor     # [1, 1, 3]
-    env_row_cdf: torch.Tensor  # [2]
-    env_col_cdf: torch.Tensor  # [1, 2]
-    env_density: torch.Tensor  # [1, 1]
+    # -- textures: every mip level of every texture in one texel pool
+    # (texture/texture.py pack_textures; [1, 3] and [1, 4] without) ----
+    tex_data: torch.Tensor    # [TEXELS, 3]
+    tex_meta: torch.Tensor    # [NTEX·MAX_MIPS, 4] int32: offset, w, h, wrap
+    # -- environment (emitter/envmap.py; 1×1 placeholders without an
+    # image) -----------------------------------------------------------------
+    env_id: torch.Tensor      # scalar int32: the environment emitter, or -1
+    env_img: torch.Tensor     # [H, W, 3] lat-long radiance
+    env_row_cdf: torch.Tensor  # [H+1] marginal row CDF
+    env_col_cdf: torch.Tensor  # [H, W+1] per-row column CDFs
+    env_density: torch.Tensor  # [H, W] pdf over the unit square
     # -- the global homogeneous medium (zeros, bound 1e30 and has_medium
     # False without one); the grid, SGGX and fiber fields are the JAX
     # builder's placeholders for a homogeneous medium ----------------------
@@ -145,7 +149,8 @@ class SceneData(NamedTuple):
     med_majorant: torch.Tensor   # scalar
     med_sggx: torch.Tensor = None   # [6] zeros
     med_fiber: torch.Tensor = None  # [3] zeros
-    env_alias: torch.Tensor = None  # always None in the port
+    env_alias: torch.Tensor = None  # [H·W, 2] Walker alias table of the
+    #                                 envmap's texels (None without one)
     # per-cluster world AABBs [C, 8] (min xyz, max xyz, pad); padding
     # clusters hold inverted boxes
     cluster_aabb: torch.Tensor = None

@@ -128,7 +128,8 @@ def bsdf_pair():
 
     args = (j, *(jnp.asarray(x) for x in (mid, wi, wo, u2, u1)))
     jf, jp, js = _compiled(ref, *args)(*args)
-    mat = tbsdf.resolve_material(t, torch.as_tensor(mid).long(), fams)
+    mat = tbsdf.resolve_material(t, torch.as_tensor(mid).long(),
+                                 families=fams)
     T = [torch.as_tensor(x) for x in (wi, wo, u2, u1)]
     tf = tbsdf.eval_bsdf_ex(mat, T[0], T[1], fams)
     tp = tbsdf.pdf_bsdf_ex(mat, T[0], T[1], fams)

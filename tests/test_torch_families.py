@@ -361,15 +361,14 @@ def test_shade_supports_refuses(leaf_scene, case, reason):
     ("directional", ""),
     ("constant", ""),
     ("thin lens", ""),
-    ("texture", "textured material (procedural checker/grid textures not "
-                "ported)"),
+    ("texture", "textured material"),
     ("beckmann rough plastic", "non-GGX/anisotropic roughplastic"),
     ("beckmann rough dielectric", "non-GGX/anisotropic roughdielectric"),
     ("anisotropic rough conductor", "non-GGX/anisotropic roughconductor"),
 ])
 def test_mega_supports_refuses(leaf_scene, case, reason):
-    """MegaPathTracer refuses (procedural) textures as "not ported" (the
-    JAX package has them), and a mixture row whose weight-texture slot
+    """MegaPathTracer refuses an albedo texture without procedural
+    provenance (no tex_procs), a mixture row whose weight-texture slot
     holds texture 0 and the non-GGX or anisotropic microfacet variants as
     the JAX gate does; it takes delta and constant lights and the thin
     lens (reason "": accepted)."""

@@ -2,9 +2,11 @@
 fused shade kernel) against their plain PyTorch versions, on the card,
 on the Cornell box (also through a thin lens), the four-material scene
 (also under point, spot, directional and constant lights), the
-leaf-families scene, the lights-and-composites scene and the fog scenes
-(chip_smoke.py FOG_SCENES: the homogeneous medium). Every test is marked
-`cuda` and skips without a card.
+leaf-families scene, the lights-and-composites scene, the fog scenes
+(chip_smoke.py FOG_SCENES: the homogeneous medium), the proctex scene
+(the megakernels' procedural albedo) and the texenv scene (the trace and
+shade kernels under bitmap textures, normal and bump maps and an
+envmap). Every test is marked `cuda` and skips without a card.
 The file
 imports neither jax nor the JAX package, so it also runs where only the
 port is installed:
@@ -17,7 +19,7 @@ import torch
 
 from chip_smoke import (FOG_SCENES, LENS, fog_scene, four_materials,
                         leaf_families_camera, leaf_families_desc,
-                        lights_scene, walk_build)
+                        lights_scene, tex_scene, walk_build)
 from mitsuba_tpu_torch.accel import dense as tdense
 from mitsuba_tpu_torch.accel import megakernel as tmk
 from mitsuba_tpu_torch.accel import shade_kernel as tshade
@@ -27,7 +29,7 @@ from mitsuba_tpu_torch.integrator.mega import (MegaPathTracer,
                                                MegaVolPathTracer)
 from mitsuba_tpu_torch.integrator.path import PathTracer, initial_state
 from mitsuba_tpu_torch.scene import presets as tpresets
-from mitsuba_tpu_torch.integrator.common import ray_mint
+from mitsuba_tpu_torch.integrator.common import offset_ray_origin, ray_mint
 from mitsuba_tpu_torch.scene import shapes as tshapes
 from mitsuba_tpu_torch.scene.builder import SceneDesc
 from mitsuba_tpu_torch.scene.builder import compile_scene as tcompile
@@ -639,3 +641,115 @@ def test_fog_mega_persistent_matches_plain_on_card(name):
     live = st[12] > 0.5
     assert (k[17][live] == 4).all() and (k[17][~live] == 0).all()
     assert tmk.LAUNCHES["mega_persistent"] == 1
+
+
+TEX_RES = 64
+
+
+def _proctex_lanes(dev):
+    """MegaPathTracer's tables for chip_smoke's proctex scene (the
+    procedural checker and grid albedo) at 64², its camera rays with every
+    seventh lane dead on entry, pixel ids and samples."""
+    scene, cam, desc = tex_scene("proctex", TEX_RES, dev)
+    tables = MegaPathTracer.for_scene(scene, max_depth=6,
+                                      tex_procs=desc.tex_procs).tables
+    assert tables.textured and tables.ext
+    pix = torch.arange(TEX_RES * TEX_RES, dtype=torch.int32, device=dev)
+    st = initial_state(*tmk.primary_rays(cam, 0, pix, 0))
+    st[12] = torch.where(pix % 7 == 3, 0.0, st[12])
+    return tables, cam, pix, torch.zeros_like(pix), st
+
+
+@pytest.mark.cuda
+def test_proctex_mega_bounce_matches_plain_on_card():
+    """mega_bounce's procedural albedo (the uv from the attribute rows, the
+    analytic checker and grid, the row's copy) against MegaPlainTracer's
+    bounce with proc_albedo, every row bit for bit, at bounces 0-3."""
+    dev = _card()
+    tables, _, pix, samp, st = _proctex_lanes(dev)
+    tmk.reset_launches()
+    for b in range(4):
+        p = tmk.bounce_plain(tables, 5, 6, st, pix, samp, 0, b)
+        assert torch.equal(tmk.run_bounce(tables, 5, 6, st, pix, samp, 0, b),
+                           p), b
+        st = p[:16]
+    assert tmk.LAUNCHES["mega_bounce"] == 4
+
+
+@pytest.mark.cuda
+def test_proctex_mega_path_matches_plain_on_card():
+    """mega_path with the procedural albedo against path_plain bit for
+    bit, the count rows included."""
+    dev = _card()
+    tables, _, pix, samp, st = _proctex_lanes(dev)
+    tmk.reset_launches()
+    k = tmk.run_path(tables, 5, 6, 6, st, pix, samp, 1)
+    assert torch.equal(k, tmk.path_plain(tables, 5, 6, 6, st, pix, samp, 1))
+    assert tmk.LAUNCHES["mega_path"] == 1
+
+
+@pytest.mark.cuda
+def test_proctex_mega_persistent_matches_plain_on_card():
+    """mega_persistent with the procedural albedo against
+    persistent_plain bit for bit over 4 spp."""
+    dev = _card()
+    tables, cam, pix, samp, st = _proctex_lanes(dev)
+    pst = torch.cat([st, torch.zeros_like(st[:8])])
+    tmk.reset_launches()
+    k = tmk.run_persistent(tables, 5, 6, 4, cam, pst, pix, samp, 1)
+    assert torch.equal(k, tmk.persistent_plain(tables, 5, 6, 4, cam, pst,
+                                               pix, samp, 1))
+    assert tmk.LAUNCHES["mega_persistent"] == 1
+
+
+def _texenv_vertex(dev, bounce):
+    """chip_smoke's texenv scene (envmap, bitmap textures, normal and bump
+    maps) at 64²: the eager wavefront at `bounce` and its vertex."""
+    scene, cam, _ = tex_scene("texenv", TEX_RES, dev)
+    tracer = PathTracer(max_depth=8, accel="plain").specialized_for(scene)
+    pix = torch.arange(TEX_RES * TEX_RES, dtype=torch.int32, device=dev)
+    samp = torch.zeros_like(pix)
+    st = initial_state(*tmk.primary_rays(cam, 0, pix, 0))
+    for b in range(bounce):
+        st = tracer.bounce(scene, st, 0, pix, samp, b)[0]
+    return scene, tracer, st, pix, samp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounce", [0, 3])
+def test_texenv_trace_matches_plain_on_card(bounce):
+    """The trace kernel on texenv's wavefront and its NEE shadow rays
+    (toward the envmap, maxt ~1e30): closest and any hit bit for bit."""
+    dev = _card()
+    scene, tracer, st, pix, samp = _texenv_vertex(dev, bounce)
+    v = tracer._vertex(scene, st, 0, pix, samp, bounce)
+    o, d = st[0:3].T.contiguous(), st[3:6].T.contiguous()
+    so = offset_ray_origin(v.its.p, v.its.ng, v.ds.d)
+    assert bool((v.ds.dist[v.shadow] >= 1e30).all()) and v.shadow.any()
+    for ray in ((o, d, ray_mint(o), torch.full_like(o[:, 0], 1e30),
+                 st[12] > 0.5),
+                (so, v.ds.d, ray_mint(so), v.ds.dist * (1.0 - 1e-3),
+                 v.shadow)):
+        ki = ttrace.intersect(scene, *ray)
+        pi = tdense.ray_intersect(scene, *ray)
+        for name in ("valid", "t", "tri_id", "uv"):
+            assert torch.equal(getattr(ki, name), getattr(pi, name)), name
+        assert torch.equal(ttrace.occluded(scene, *ray),
+                           tdense.ray_test(scene, *ray))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounce", [0, 3])
+def test_texenv_shade_matches_plain_on_card(bounce):
+    """The shade kernel on texenv's texture-resolved rows and normal- and
+    bump-mapped frames, with envmap NEE, against shade_plain bit for
+    bit."""
+    dev = _card()
+    scene, tracer, st, pix, samp = _texenv_vertex(dev, bounce)
+    assert tshade.supports(scene) == (True, "")
+    packed = tracer.shade_inputs(scene, st, 0, pix, samp, bounce)
+    tshade.reset_launches()
+    k = tshade.run_shade(scene, packed, pix, samp, 0, bounce, 5, 8)
+    assert torch.equal(k, tshade.shade_plain(scene, packed, pix, samp, 0,
+                                             bounce, 5, 8))
+    assert tshade.LAUNCHES["shade"] == 1

@@ -134,10 +134,14 @@ def test_light_rows_match_jax(kind):
 
 
 def test_envmap_refused():
+    """The builder compiles an EnvmapLight (tests/test_torch_textures.py);
+    the megakernels refuse its scene with the JAX gate's reason."""
     d = tb.SceneDesc()
-    d.envmap = np.ones((4, 8, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="EnvmapLight"):
-        tb.compile_scene(d, device="cpu")
+    d.envmap = tb.EnvmapLight(image=np.ones((4, 8, 3), np.float32))
+    scene = tb.compile_scene(d, device="cpu")
+    assert scene.em_type.tolist() == [3] and int(scene.env_id) == 0
+    assert MegaPathTracer.supports(scene) == (
+        False, "unsupported emitter types {3}")
 
 
 def test_sample_direct_matches_jax():

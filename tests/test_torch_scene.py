@@ -25,6 +25,7 @@ from mitsuba_tpu_torch.emitter import emitter as tem
 from mitsuba_tpu_torch.film.film import Film as TFilm
 from mitsuba_tpu_torch.scene import presets as tpresets
 from mitsuba_tpu_torch.scene import shapes as tshapes
+from mitsuba_tpu_torch.scene.builder import Medium
 from mitsuba_tpu_torch.scene.builder import SceneDesc as TSceneDesc
 from mitsuba_tpu_torch.scene.builder import compile_scene as tcompile
 
@@ -125,8 +126,9 @@ def test_scene_from_numpy_rejects_unported():
     with pytest.raises(NotImplementedError, match=r"BSDF families \[15\]"):
         scene_from_numpy(arrays, device="cpu")
     arrays = _numpy_fields(jcompile(jpresets.cornell_box()))
-    arrays["em_type"] = np.full_like(arrays["em_type"], 3)   # envmap
-    with pytest.raises(NotImplementedError, match="envmap"):
+    arrays["has_medium"] = np.array(True)    # a density grid
+    arrays["med_grid"] = np.ones((2, 2, 2), np.float32)
+    with pytest.raises(NotImplementedError, match="heterogeneous medium"):
         scene_from_numpy(arrays, device="cpu")
 
 
@@ -186,12 +188,8 @@ def test_compile_scene_rejects_unported():
     with pytest.raises(NotImplementedError, match="'hk'"):
         tcompile(d, device="cpu")
     d = tpresets.cornell_box()
-    d.envmap = np.ones((4, 8, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="EnvmapLight"):
-        tcompile(d, device="cpu")
-    d = tpresets.cornell_box()
-    d.add_material(kind="diffuse", albedo_texture=0)
-    with pytest.raises(NotImplementedError, match="albedo_texture"):
+    d.medium = Medium(density_grid=np.ones((2, 2, 2)))
+    with pytest.raises(NotImplementedError, match="heterogeneous"):
         tcompile(d, device="cpu")
     with pytest.raises(NotImplementedError, match="tent"):
         TFilm(8, 8, "tent")
