@@ -4,14 +4,16 @@
     python3 chip_smoke.py
 
 Phases, each of which must pass or the script exits non-zero:
-  1. build csrc/trace.cu, csrc/megakernel.cu and csrc/shade.cu with nvcc
-     for sm_90a, one nvcc each, all started together, and start phase
-     16's builds in a child process at the lowest CPU priority, so they
-     compile while phases 2-15 run: trace.cu and megakernel.cu under each
-     walk variant of WALK_VARIANTS (build defines of
-     csrc/trace_common.cuh) and shade.cu under "simt"; print ptxas's
-     register and spill reports of the default builds (and, in phase 16,
-     of the SIMT walk's), and fail on a spill in any build;
+  1. build csrc/trace.cu, csrc/megakernel.cu, csrc/shade.cu,
+     csrc/roofline.cu and csrc/gather.cu with nvcc for sm_90a, one nvcc
+     each, all started together, and start phases 16 and 22's builds in
+     a child process at the lowest CPU priority, so they compile while
+     phases 2-15 run: trace.cu and megakernel.cu under each walk variant
+     of WALK_VARIANTS (build defines of csrc/trace_common.cuh), shade.cu
+     under "simt" and trace.cu under each of ORDER_VARIANTS; print
+     ptxas's register and spill reports of the default builds (and, in
+     phase 16, of the SIMT walk's and the index order's), and fail on a
+     spill in any build;
   2. hold the trace kernel against its plain PyTorch version on the Cornell
      box: 256² primary rays and one bounce of NEE shadow rays, closest-hit
      and any-hit, bit for bit on every lane (as in every trace phase);
@@ -128,7 +130,23 @@ Phases, each of which must pass or the script exits non-zero:
      run's Cornell 2048-spp and lights 256-spp launches printed beside
      the times recorded before the medium branch (GUARD_BANDS), for
      information only: a time from another call decides nothing, and
-     scripts/ab_persistent.py compares two checkouts in one call.
+     scripts/ab_persistent.py compares two checkouts in one call;
+ 21. (tex_phases) config 3's textures and envmap and the procedural
+     albedo: see tex_phases;
+ 22. the trace kernel's ordered walk and the probes: on the wavefronts
+     of bounces 0 and 3 and their NEE shadow rays on the leaf, lights,
+     texenv and four-material scenes (ORDER_SCENES), the kernel against
+     ordered_walk_plain (visits included) and dense.py bit for bit,
+     closest and any hit, timed beside its bound and the warps' mean
+     visits; then in turns (ORDER_TURNS) against its build in index
+     order (ORDER_VARIANTS), held exact, with Cornell's rays too; the eager rays/s of leaf and
+     texenv at 16 spp, fused off and on, under the default and the
+     index-order builds; then the probes of mitsuba_tpu_torch/
+     experiments: e0's FFMA and FMUL+FADD TFLOP/s, e1's rays/s at the
+     TPU probe's inputs and on the Cornell and leaf tables with the
+     share of lanes that hit at each step, and every gather form's GB/s
+     beside torch.gather's (or torch.take's), each kernel against its
+     plain version.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 reports them, and {"ok": true, "device": {...}}; the line before them lists
@@ -137,8 +155,11 @@ every ported kernel with its launches, error and times on the Cornell box
 same on the leaf-families scene, under "lights_composites" on the
 lights-and-composites scene (the shade kernel: the four-material scene
 with its lights) and under "fog" (the trace kernel and the megakernels)
-on the foggy Cornell box; phase 16 prints {"walk": ...}, its times by
-variant. Exits non-zero
+on the foggy Cornell box, under "textures" on phase 21's scenes, under
+"ordered" (the trace kernel) phase 22's times by scene and build, and
+entries for the probes' kernels (e0_ffma, e0_fmul_fadd, e1_trace_only,
+gather; no path of the program launches them); phase 16 prints
+{"walk": ...}, its times by variant. Exits non-zero
 without a CUDA device, and without the package beside it.
 """
 import atexit
@@ -155,6 +176,8 @@ import time
 
 import numpy as np
 import torch
+
+from mitsuba_tpu_torch.experiments import time_ms
 
 DEV = "cuda"
 CORNELL_RES = 256
@@ -305,22 +328,40 @@ TEXENV_CPU_RES, TEXENV_CPU_SPP = 64, 2   # the eager path, card vs CPU
 PROCTEX_DEPTH = 6
 PROCTEX_SPP = 16            # render() with MegaPathTracer, render_persistent
 PROCTEX_TIMED_SPP = 256     # one mega_persistent launch, timed
+# phase 22: the trace kernel's ordered walk (its exit tested every 4
+# clusters, the TPU kernel's stride) against its build in index order
+# ("index"), trace.cu only, in turns; the scenes walked in order (8 to 128
+# clusters) and their rays at these bounces
+ORDER_VARIANTS = {"index": ("-DMITSUBA_WALK_ORDER=0",)}
+ORDER_TURNS = ("new", "index", "index", "new")
+ORDER_SCENES = ("leaf", "lights", "texenv", "four_material")
+ORDER_BOUNCES = (0, 3)
+ORDER_DEPTH = 6             # the PathTracer whose wavefronts are traced
+ORDER_EAGER_SPP = 16        # leaf (rough plastic swapped) and texenv
+# phase 22's probes (mitsuba_tpu_torch/experiments): e0 held to its plain
+# version over E0_CHECK_ITERS steps (and its variants apart on at least
+# E0_DIFFER of the lanes), e1 on scene tables over E1_SCENE_ITERS
+E0_CHECK_ITERS = 64
+E0_DIFFER = 0.25
+E1_SCENE_ITERS = 8
 # families whose eval runs without the both-above-the-surface test
 TRANSMISSIVE = (5, 12)      # rough dielectric, difftrans
 SHADE_ROWS_IN, SHADE_ROWS_OUT = 50, 16
 SHADE_ROWS_DEAD = 11        # act, p, d, L, eta: what an inactive lane reads
 
 @contextlib.contextmanager
-def walk_build(*defines):
+def walk_build(*defines, trace_only=False):
     """Inside the block the trace, megakernel and shade wrappers launch
     their builds under these nvcc defines of the cluster walk
     (csrc/trace_common.cuh, e.g. "-DMITSUBA_WALK_COOP=0"): each module's
-    _library is rebound, and put back on leaving. For phase 16 and the
-    card tests; the port's entry points launch the default builds."""
+    _library is rebound (only the trace kernel's with trace_only), and
+    put back on leaving. For phases 16 and 22 and the card tests; the
+    port's entry points launch the default builds."""
     from mitsuba_tpu_torch.accel import megakernel as mk
     from mitsuba_tpu_torch.accel import shade_kernel as sk
     from mitsuba_tpu_torch.accel import trace
-    saved = [(m, m._library) for m in (trace, mk, sk)]
+    saved = [(m, m._library) for m in ((trace,) if trace_only
+                                       else (trace, mk, sk))]
     for m, _ in saved:
         m._library = lambda m=m: m._bind(m.build(defines)[0])
     try:
@@ -336,17 +377,21 @@ def check(cond, msg):
 
 
 def build_jobs(variants):
-    """Phase 1's nvcc builds: the three libraries, or (variants) the
-    walk variants phase 16 compares: trace.cu and megakernel.cu under
-    each of WALK_VARIANTS, shade.cu under "simt"."""
+    """Phase 1's nvcc builds: the five libraries, or (variants) the
+    walk variants phases 16 and 22 compare: trace.cu and megakernel.cu
+    under each of WALK_VARIANTS, shade.cu under "simt", trace.cu under
+    each of ORDER_VARIANTS."""
     from mitsuba_tpu_torch.accel import megakernel as mk
     from mitsuba_tpu_torch.accel import shade_kernel as sk
     from mitsuba_tpu_torch.accel import trace
+    from mitsuba_tpu_torch.experiments import gather_probe, roofline
     if not variants:
-        return [(trace.build, ()), (mk.build, ()), (sk.build, ())]
+        return [(trace.build, ()), (mk.build, ()), (sk.build, ()),
+                (roofline.build, ()), (gather_probe.build, ())]
     return ([(fn, defines) for defines in WALK_VARIANTS.values() if defines
              for fn in (trace.build, mk.build)]
-            + [(sk.build, WALK_VARIANTS["simt"])])
+            + [(sk.build, WALK_VARIANTS["simt"])]
+            + [(trace.build, defines) for defines in ORDER_VARIANTS.values()])
 
 
 def run_builds(jobs, shown=()):
@@ -392,8 +437,10 @@ def join_variant_builds(proc, t0):
     print(f"[build] walk variants: {len(build_jobs(True))} builds beside "
           f"phases 2-15, done {time.perf_counter() - t0:.1f} s after they "
           f"started", flush=True)
-    # cached now: print the SIMT walk's reports, check every build's
-    run_builds(build_jobs(True), shown=(WALK_VARIANTS["simt"],))
+    # cached now: print the SIMT walk's and the index order's reports,
+    # check every build's
+    run_builds(build_jobs(True), shown=(WALK_VARIANTS["simt"],
+                                        ORDER_VARIANTS["index"]))
 
 
 def card_line():
@@ -402,24 +449,6 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0].strip()
-
-
-def time_ms(fn, reps, warmup=3):
-    """Mean device time of fn() over `reps` runs, by CUDA events. A sleep
-    kernel (~25 ms) queued first keeps the card busy while the host
-    enqueues the runs, so host launch overhead does not enter the time."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def camera_rays(cam, res, seed=0):
@@ -498,7 +527,7 @@ def needed_work(scene, o, d, mint, maxt, live, any_hit):
     (OPS_DZ, OPS_T, OPS_UV). In any-hit mode an occluded ray needs only the
     one test that finds its occluder. Slab tests are not counted, and a
     table row is counted once however many rays read it."""
-    from mitsuba_tpu_torch.accel import dense
+    from mitsuba_tpu_torch.accel import dense, trace
     n, c = o.shape[0], scene.woop_clusters.shape[0]
     tri_real = (scene.tri_area[:c * TRIS_PER_CLUSTER] > 0).view(
         c, TRIS_PER_CLUSTER)
@@ -517,8 +546,7 @@ def needed_work(scene, o, d, mint, maxt, live, any_hit):
         live, cap = live & ~occ, maxt
     else:
         cap = torch.where(hit.valid, hit.t, maxt)
-    inv = torch.where(d.abs() < 1e-12, torch.where(d >= 0, 1e30, -1e30),
-                      1.0 / d)
+    inv = trace.safe_inv(d)
     entered = torch.zeros(c, dtype=torch.bool, device=o.device)
     for r0 in range(0, n, 4096):
         rs = slice(r0, r0 + 4096)
@@ -2217,10 +2245,12 @@ def mega_exact(name, tables, cam, res, depth, rr, plain_cam):
 
 
 def eager_rate(label, scene, cam, film, integrator, card, spp=FOG_SPP,
-               traced=("trace_closest", "trace_any")):
+               traced=("trace_closest", "trace_any"), profile=True,
+               stats=None):
     """render_fn at `spp` with the trace and shade kernels' launches
-    counted: (image, rays, launches), with rays/s and the busy share of a
-    1-spp pass printed; fails unless each launch of `traced` ran."""
+    counted: (image, rays, launches), with rays/s (also into
+    stats["rays/s"] where a dict is given) and (profile) the busy share
+    of a 1-spp pass printed; fails unless each launch of `traced` ran."""
     from mitsuba_tpu_torch.accel import shade_kernel as sk
     from mitsuba_tpu_torch.accel import trace
     from mitsuba_tpu_torch.render import render_fn
@@ -2240,7 +2270,10 @@ def eager_rate(label, scene, cam, film, integrator, card, spp=FOG_SPP,
     check(bool(torch.isfinite(img).all()), f"{label}: NaN/Inf")
     check(all(launches[k] > 0 for k in traced),
           f"{label}: a trace kernel was not launched")
-    profile_pass(scene, cam, film, integrator, card)
+    if stats is not None:
+        stats["rays/s"] = int(n) / wall
+    if profile:
+        profile_pass(scene, cam, film, integrator, card)
     return img, int(n), launches
 
 
@@ -2670,6 +2703,346 @@ def tex_phases(card, kernels):
             k["textures"] = out[k["name"]]
 
 
+def order_scene(name, res, device=DEV):
+    """A scene of ORDER_SCENES compiled on `device`, and its res²
+    camera."""
+    if name == "leaf":
+        return leaf_scene(res, device)
+    if name == "lights":
+        return lights_scene(res, device)
+    if name == "texenv":
+        return tex_scene("texenv", res, device)[:2]
+    return four_materials(res, device)
+
+
+def order_rays(scene, cam, res, bounces=ORDER_BOUNCES, device=DEV):
+    """The rays the eager path hands the trace kernel at each bounce of
+    `bounces` (PathTracer(max_depth=ORDER_DEPTH), plain tracing, seed 0):
+    "b{b}": the wavefront, every lane in pixel order with the live ones
+    marked, for a closest hit; "b{b} shadow": its NEE shadow rays, for an
+    any hit. Each is (o, d, mint, maxt, live)."""
+    from mitsuba_tpu_torch.accel import megakernel as mk
+    from mitsuba_tpu_torch.core.math import SHADOW_EPSILON
+    from mitsuba_tpu_torch.integrator.common import (offset_ray_origin,
+                                                     ray_mint)
+    from mitsuba_tpu_torch.integrator.path import PathTracer, initial_state
+    pix = torch.arange(res * res, dtype=torch.int32, device=device)
+    samp = torch.zeros_like(pix)
+    tracer = PathTracer(max_depth=ORDER_DEPTH,
+                        accel="plain").specialized_for(scene)
+    st = initial_state(*mk.primary_rays(cam, 0, pix, 0))
+    out = {}
+    for b in range(max(bounces) + 1):
+        if b in bounces:
+            o, d = st[0:3].T.contiguous(), st[3:6].T.contiguous()
+            out[f"b{b}"] = (o, d, ray_mint(o), torch.full_like(o[:, 0], 1e30),
+                            st[12] > 0.5)
+            v = tracer._vertex(scene, st, 0, pix, samp, b)
+            so = offset_ray_origin(v.its.p, v.its.ng, v.ds.d)
+            out[f"b{b} shadow"] = (so, v.ds.d, ray_mint(so),
+                                   v.ds.dist * (1.0 - SHADOW_EPSILON),
+                                   v.shadow)
+        st = tracer.bounce(scene, st, 0, pix, samp, b)[0]
+    return out
+
+
+def walking_warps(live):
+    """[ceil(N / 32)] bool: the warps of 32 lanes with a live lane."""
+    n_w = -(-live.shape[0] // 32)
+    pad = n_w * 32 - live.shape[0]
+    return torch.cat([live, live.new_zeros(pad)]).view(n_w, 32).any(1)
+
+
+def order_exact(label, scene, rays):
+    """The trace kernel (the build bound now) against ordered_walk_plain,
+    visits included, and against dense.py, closest and any hit, bit for
+    bit on every lane. Returns the mean cluster positions a warp with a
+    live lane stepped through, by mode."""
+    from mitsuba_tpu_torch.accel import dense, trace
+    o, d, mint, maxt, live = rays
+    ref = dense.intersect_soup(o, d, scene.woop_o, mint, maxt, live)
+    walking = walking_warps(live)
+    out = {}
+    for any_hit in (False, True):
+        vis = torch.full((walking.shape[0],), -1, dtype=torch.int32,
+                         device=DEV)
+        k = trace.trace(scene, *rays, any_hit, visits=vis)
+        p = trace.ordered_walk_plain(scene, *rays, any_hit)
+        same = (torch.equal(k[4], p[4]) and torch.equal(k[4], ref[4])
+                and torch.equal(vis, p[5]))
+        if not any_hit:
+            same = same and all(
+                torch.equal(a, b) and torch.equal(a, c) for a, b, c in
+                zip((k[0], k[1].long(), k[2], k[3]), p[:4], ref[:4]))
+        check(same, f"{label} ({'any' if any_hit else 'closest'}): the "
+                    "ordered kernel differs from its plain version")
+        out["any" if any_hit else "closest"] = \
+            vis[walking].float().mean().item()
+    return out
+
+
+def order_phase(card, kernels, cornell):
+    """Phase 22: the ordered walk. Adds "ordered" to the trace kernel's
+    entries of `kernels`: by scene and ray set its time under the default
+    build (ordered, the exit every 4 clusters) beside the index order, the
+    warps' visits and the bound; Cornell's times under both; the eager
+    rays/s under both. cornell: {label: (scene,
+    rays, any_hit)} of phase 2's rays."""
+    from mitsuba_tpu_torch.accel import trace
+    from mitsuba_tpu_torch.film.film import Film
+    from mitsuba_tpu_torch.integrator.path import PathTracer
+    t_start = time.perf_counter()
+    res = CORNELL_RES
+    cases, rows = {}, {"closest": {}, "any": {}}
+    for name in ORDER_SCENES:
+        scene, cam = order_scene(name, res, DEV)
+        check(trace.walks_ordered(scene),
+              f"{name}: the trace kernel does not walk it in order")
+        for label, rays in order_rays(scene, cam, res, device=DEV).items():
+            visits = order_exact(f"order {name} {label}", scene, rays)
+            any_hit = label.endswith("shadow")
+            mode = "any" if any_hit else "closest"
+            key = f"{name} {label}"
+            cases[key] = (scene, rays, any_hit)
+            rows[mode][key] = {
+                "visits": visits[mode], "clusters":
+                scene.cluster_order.shape[0],
+                "walked": -(-trace.real_tris(scene) // TRIS_PER_CLUSTER),
+                **measure(f"trace_{mode}, {key} (ordered)", any_hit, scene,
+                          rays, 1, card)}
+            print(f"[order] {key}: {int(rays[4].sum())} rays, mean "
+                  f"positions a warp: closest {visits['closest']:.3f}, any "
+                  f"{visits['any']:.3f} of {rows[mode][key]['walked']} "
+                  f"walked clusters", flush=True)
+    cases.update(cornell)
+    # the builds in turns; each held exact on its first turn
+    held, turns = set(), []
+    for variant in ORDER_TURNS:
+        defines = ORDER_VARIANTS.get(variant, ())
+        row = {}
+        with walk_build(*defines, trace_only=True):
+            for key, (scene, rays, any_hit) in cases.items():
+                if variant not in held and not key.startswith("cornell"):
+                    compare(f"{variant} {key}", scene, *rays,
+                            {"trace_closest": 0.0, "trace_any": 0.0})
+                row[key] = time_ms(lambda: trace.trace(scene, *rays,
+                                                       any_hit), 20)
+        held.add(variant)
+        turns.append((variant, row))
+        print(f"[order] {variant}: " + ", ".join(
+            f"{k} {v * 1e3:.2f} us" for k, v in row.items()) + f" ({card})",
+            flush=True)
+    for key, (_, _, any_hit) in cases.items():
+        mean = {v: np.mean([r[key] for w, r in turns if w == v])
+                for v in ("new", "index")}
+        print(f"[order] mean {key}: ordered {mean['new'] * 1e3:.2f} us, "
+              f"index order {mean['index'] * 1e3:.2f} us ({card})",
+              flush=True)
+        entry = rows["any" if any_hit else "closest"].setdefault(key, {})
+        entry.update({"ms_turns": mean["new"], "index_ms": mean["index"]})
+    # the eager path under both builds
+    film = Film(res, res, "box")
+    eager = {}
+    for name in ("leaf", "texenv"):
+        if name == "leaf":
+            scene, cam = leaf_scene(res, DEV, rough_plastic=False)
+        else:
+            scene, cam = order_scene(name, res, DEV)
+        for variant in ("new", "index"):
+            with walk_build(*ORDER_VARIANTS.get(variant, ()),
+                            trace_only=True):
+                for mode in ("off", "on"):
+                    stats = {}
+                    eager_rate(f"order eager {name} {variant}, fused {mode}",
+                               scene, cam, film,
+                               PathTracer(max_depth=ORDER_DEPTH if name ==
+                                          "leaf" else TEXENV_DEPTH,
+                                          fused_shade=mode), card,
+                               spp=ORDER_EAGER_SPP, profile=False,
+                               traced=("trace_closest",) if mode == "on"
+                               else ("trace_closest", "trace_any"),
+                               stats=stats)
+                    eager[f"{name} {variant} fused {mode}"] = stats["rays/s"]
+    print(f"[order] phase 22 walk: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    for k in kernels:
+        if k["name"] in ("trace_closest", "trace_any"):
+            k["ordered"] = {"by_rays": rows[k["name"][6:]],
+                            "eager_rays_per_s": eager}
+
+
+def soup_ops(woop_o, rays):
+    """fp32 operations the triangle tests of these ray sets need against
+    every triangle of woop_o (a table the rays all enter, as e1's
+    everything-box): each test OPS_DZ, OPS_T past d'_z, OPS_UV where t
+    lies in range up to the ray's closest hit; rays: [(o, d, mint, maxt,
+    t), ...] with t the closest hit (MISS on a miss)."""
+    from mitsuba_tpu_torch.accel import dense
+    w = woop_o.view(4, -1, 3)
+    n_dz = n_t = n_tests = 0
+    for o, d, mint, maxt, t in rays:
+        dz = ((d[:, 0, None] * w[0, :, 2] + d[:, 1, None] * w[1, :, 2])
+              + d[:, 2, None] * w[2, :, 2])
+        oz = (((o[:, 0, None] * w[0, :, 2] + o[:, 1, None] * w[1, :, 2])
+               + o[:, 2, None] * w[2, :, 2]) + w[3, :, 2])
+        ok = dz.abs() >= 1e-12
+        tt = -oz / torch.where(ok, dz, 1.0)
+        cap = torch.where(t < dense.MISS, t, maxt)
+        in_range = (ok & (tt > mint[:, None]) & (tt < maxt[:, None])
+                    & (tt <= cap[:, None]))
+        n_tests += dz.numel()
+        n_dz = n_dz + ok.sum()
+        n_t = n_t + in_range.sum()
+    return OPS_DZ * n_tests + OPS_T * int(n_dz) + OPS_UV * int(n_t)
+
+
+def probe_phase(card, kernels):
+    """Phase 22's probes (mitsuba_tpu_torch/experiments, the ports of
+    experiments/'s TPU probes): e0's two variants, e1 at the TPU probe's
+    inputs and on the Cornell and leaf tables, every gather form; each
+    kernel held to its plain version, timed beside its bound and (the
+    gathers) torch.gather. Appends their entries to `kernels` (no path of
+    the program launches them: launches 0)."""
+    from mitsuba_tpu_torch.accel import megakernel as mk
+    from mitsuba_tpu_torch.accel import trace
+    from mitsuba_tpu_torch.experiments import gather_probe as gp
+    from mitsuba_tpu_torch.experiments import roofline as rf
+    from mitsuba_tpu_torch.scene.builder import compile_scene
+    from mitsuba_tpu_torch.scene.presets import cornell_box, cornell_camera
+    t_start = time.perf_counter()
+    # ---- e0: the fp32 ceiling ------------------------------------------
+    x = torch.ones(rf.E0_ROWS, rf.B, device=DEV)
+    xr = torch.rand(rf.E0_ROWS, rf.B, device=DEV,
+                    generator=torch.Generator(DEV).manual_seed(0)) + 0.5
+    flops = rf.e0_flops(x.numel(), rf.E0_ITERS)
+    outs = {fma: rf.e0(xr, E0_CHECK_ITERS, fma) for fma in (True, False)}
+    # FFMA and FMUL+FADD round differently: the variants must differ on
+    # many lanes (58.5% of these after 64 steps, by the plain versions), or
+    # the FFMA build does not fuse
+    differ = (outs[True] != outs[False]).float().mean().item()
+    check(differ >= E0_DIFFER, f"e0: FFMA and FMUL+FADD differ on only "
+                               f"{differ:.3%} of lanes")
+    for fma, name in ((True, "e0_ffma"), (False, "e0_fmul_fadd")):
+        k = outs[fma]
+        plain_ms, p = events_ms(lambda: rf.e0_plain(xr, E0_CHECK_ITERS, fma))
+        check(torch.equal(k, p), f"{name} differs from its plain version")
+        ms = time_ms(lambda: rf.e0(x, rf.E0_ITERS, fma), 3, warmup=1)
+        bound = flops / PEAK_FP32 * 1e3
+        print(f"[e0] {name}: [{rf.E0_ROWS}, {rf.B}] x {rf.E0_ITERS} steps "
+              f"{ms:.4f} ms, {flops / ms / 1e9:.6g} TFLOP/s (bound "
+              f"{bound:.4f} ms at 67 TFLOP/s); bit-equal to the plain "
+              f"version over {E0_CHECK_ITERS} steps, {differ:.2%} of lanes "
+              f"apart from the other variant ({card})", flush=True)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mitsuba_tpu_torch/csrc/roofline.cu",
+            "replaces": "experiments/_exp_roofline.py:40",
+            "launches": 0, "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms,
+            "plain_shape": f"{E0_CHECK_ITERS} steps",
+            "bound_ms": bound, "bound_by": "operations",
+            "tflops": flops / ms / 1e9, "library_ms": None})
+    # ---- e1: the walk with no shading ------------------------------------
+    table, st = rf.probe_table(device=DEV), rf.probe_state(device=DEV)
+    hits = torch.zeros(rf.E1_ITERS, 2, dtype=torch.int32, device=DEV)
+    k = rf.e1(table, st, rf.E1_ITERS, hits)
+    plain_ms, (p, p_hits, rays) = events_ms(
+        lambda: rf.e1_plain(table, st, rf.E1_ITERS, record=True))
+    check(torch.equal(k, p) and torch.equal(hits, p_hits),
+          "e1 at the probe's inputs differs from its plain version")
+    ms = time_ms(lambda: rf.e1(table, st, rf.E1_ITERS), 3, warmup=1)
+    ops = soup_ops(table.woop_o, rays)
+    del rays
+    bound = ops / PEAK_FP32 * 1e3
+    share = (hits.float() / rf.B).tolist()
+    n_rays = 2 * rf.B * rf.E1_ITERS
+    print(f"[e1] probe inputs ({rf.B} lanes, {rf.TC} triangles, "
+          f"{rf.E1_ITERS} steps): {ms:.4f} ms, {n_rays / ms * 1e3:.6g} "
+          f"rays/s, bound {bound:.4f} ms ({ops} fp32 ops), plain "
+          f"{plain_ms:.1f} ms, bit-equal; lanes hitting (first, second "
+          f"trace) at steps 0-3 {share[:4]}, at the last {share[-1]} "
+          f"({card})", flush=True)
+    e1_row = {"name": "e1_trace_only", "route": "cuda",
+              "source": "mitsuba_tpu_torch/csrc/roofline.cu",
+              "replaces": "experiments/_exp_roofline.py:116",
+              "launches": 0, "max_abs_err": 0.0, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": bound,
+              "bound_by": "operations", "rays_per_s": n_rays / ms * 1e3,
+              "hit_share": share[:4] + share[-1:], "library_ms": None}
+    res = CORNELL_RES
+    pix = torch.arange(res * res, dtype=torch.int32, device=DEV)
+    for name, (scene, cam) in (
+            ("cornell", (compile_scene(cornell_box(), device=DEV),
+                         cornell_camera(res, res))),
+            ("leaf", leaf_scene(res, DEV))):
+        o, d = mk.primary_rays(cam, 0, pix, 0)
+        st = torch.cat([o.T, d.T]).contiguous()
+        p, p_hits = rf.e1_plain(scene, st, E1_SCENE_ITERS)
+        # the table without its order tables: the index-order walk
+        walks = {"index": rf.Table(scene.woop_clusters, scene.cluster_aabb,
+                                   scene.woop_o, scene.n_real_tris)}
+        if trace.walks_ordered(scene):
+            walks["ordered"] = scene
+        for walk, tab in walks.items():
+            hits = torch.zeros(E1_SCENE_ITERS, 2, dtype=torch.int32,
+                               device=DEV)
+            k = rf.e1(tab, st, E1_SCENE_ITERS, hits)
+            check(torch.equal(k, p) and torch.equal(hits, p_hits),
+                  f"e1 on {name} ({walk}) differs from its plain version")
+            ms = time_ms(lambda: rf.e1(tab, st, E1_SCENE_ITERS), 5)
+            n_rays = 2 * st.shape[1] * E1_SCENE_ITERS
+            share = (hits.float() / st.shape[1]).tolist()
+            e1_row[f"{name} {walk}"] = {"ms": ms,
+                                        "rays_per_s": n_rays / ms * 1e3,
+                                        "hit_share": share}
+            print(f"[e1] {name} camera rays, {walk} walk, "
+                  f"{E1_SCENE_ITERS} steps: {ms:.4f} ms, "
+                  f"{n_rays / ms * 1e3:.6g} rays/s, bit-equal; lanes "
+                  f"hitting by step {[[round(a, 4) for a in s] for s in share]}"
+                  f" (a missed ray's origin runs off by 1e27: later steps "
+                  f"walk little) ({card})", flush=True)
+    kernels.append(e1_row)
+    # ---- the gathers ------------------------------------------------------
+    forms = {}
+    for name in gp.FORMS:
+        tab, idx, axis, col = gp.make_form(name, gp.fill_scale(name), DEV)
+        idx64 = idx.long()
+        k = gp.gather(tab, idx, axis, col)
+        plain_ms, p = events_ms(lambda: gp.gather_plain(tab, idx, axis, col))
+        check(torch.equal(k, p), f"gather {name} differs from its plain "
+                                 "version")
+        check(torch.equal(gp.gather_library(tab, idx64, axis, col), p),
+              f"gather {name}: the library call differs")
+        ms = time_ms(lambda: gp.launch(tab, idx, axis, col), 20)
+        lib_ms = time_ms(lambda: gp.gather_library(tab, idx64, axis, col),
+                         20)
+        n_bytes = gp.form_bytes(tab, idx)
+        bound = n_bytes / PEAK_BYTES * 1e3
+        forms[name] = {"idx_shape": list(idx.shape), "ms": ms,
+                       "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": bound, "gb_per_s": n_bytes / ms / 1e6,
+                       "library_gb_per_s": n_bytes / lib_ms / 1e6}
+        print(f"[gather] {name}, idx {tuple(idx.shape)}: {ms:.4f} ms, "
+              f"{n_bytes / ms / 1e6:.6g} GB/s; torch.gather/take "
+              f"{lib_ms:.4f} ms, {n_bytes / lib_ms / 1e6:.6g} GB/s; plain "
+              f"{plain_ms:.4f} ms; bound {bound:.4f} ms at 3.35 TB/s "
+              f"({card})", flush=True)
+        del tab, idx, idx64, k, p
+    main_form = forms["column [512,128]"]
+    kernels.append({"name": "gather", "route": "cuda",
+                    "source": "mitsuba_tpu_torch/csrc/gather.cu",
+                    "replaces": "experiments/_exp_gather_probe.py:29; "
+                                "experiments/_exp_gather_probe2.py:23",
+                    "launches": 0, "max_abs_err": 0.0,
+                    **{k: main_form[k] for k in ("ms", "plain_ms",
+                                                 "bound_ms")},
+                    "bound_by": "bytes",
+                    "library_ms": main_form["library_ms"],
+                    "forms": forms})
+    print(f"[probes] phase 22 probes: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+
 def walk_phase(card, cases):
     """Phase 16: each build of WALK_VARIANTS in the turns of WALK_TURNS on
     the same inputs. cases["traces"]: name -> (scene, rays, any_hit), each
@@ -2764,8 +3137,8 @@ def main():
     variant_builds = start_variant_builds()
     t0 = time.perf_counter()
     run_builds(build_jobs(False), shown=((),))
-    print(f"[build] 3 libraries, {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"[build] {len(build_jobs(False))} libraries, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     props = torch.cuda.get_device_properties(0)
     print(f"[build] {props.multi_processor_count} SMs; one lane per pixel "
           f"gives {CORNELL_RES ** 2 // 32 / props.multi_processor_count:.1f}"
@@ -3039,6 +3412,9 @@ def main():
         / len(BENCH_SEEDS),
         "lights 256 spp": persist["lights_composites"]["ms"]})
     tex_phases(card, kernels)
+    order_phase(card, kernels, {"cornell b0": (scene, primary, False),
+                                "cornell b0 shadow": (scene, shadow, True)})
+    probe_phase(card, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,7 +10,11 @@ build/kernels/, and bound through a plain C interface with ctypes.
 
 The kernels' cluster walk stops at the scene's last real triangle
 (`real_tris`, checked once per table): the builder's padding follows it
-and never hits.
+and never hits. On a scene with the front-to-back order tables and more
+than one walked cluster (`walks_ordered`) the trace kernel visits the
+clusters nearest each warp's rays first and stops early, as the TPU
+kernel's ordered branch does; `ordered_walk_plain` is that walk in torch,
+visits included. Both give dense.py's hits on every live lane.
 """
 from __future__ import annotations
 
@@ -31,6 +35,8 @@ from . import dense
 
 TRIS_PER_CLUSTER = 64       # triangles per kernel cluster (csrc/trace.cu)
 ORDER_MAX_CLUSTERS = 128    # order tables are built up to this many clusters
+EXIT_EVERY = 4              # kExitEvery of the ordered walk (trace_common.cuh)
+WARP = 32
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -209,7 +215,7 @@ def _bind(path: Path):
     fn = ctypes.CDLL(str(path)).mitsuba_trace
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                     ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6)
+                   + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10)
     fn.restype = ctypes.c_int
     return fn
 
@@ -223,10 +229,15 @@ def check_tensor(x: torch.Tensor, name, dtype, shape, device, align=1):
             f"on {x.device}")
 
 
-def trace(scene: SceneData, o, d, mint, maxt, live, any_hit: bool):
+def trace(scene: SceneData, o, d, mint, maxt, live, any_hit: bool,
+          visits=None):
     """One kernel launch over N rays on CUDA tensors (the port of
     pallas_trace.trace). Returns (t, tri, u, v, hit); in any-hit mode only
-    hit is computed and the others are None."""
+    hit is computed and the others are None. The kernel walks the
+    clusters in order where the scene has the order tables
+    (walks_ordered), and then writes into `visits` ([ceil(N / 32)] int32,
+    where given) the cluster positions each warp of 32 rays stepped
+    through."""
     dev = o.device
     if dev.type != "cuda":
         raise ValueError(f"trace launches the CUDA kernel; rays are on {dev}")
@@ -238,6 +249,15 @@ def trace(scene: SceneData, o, d, mint, maxt, live, any_hit: bool):
     check_tensor(woop, "woop_clusters", torch.float32,
            (c, 3 * TRIS_PER_CLUSTER, 4), dev, align=16)
     check_tensor(aabb, "cluster_aabb", torch.float32, (c, 8), dev, align=16)
+    tables = (scene.cluster_meta, scene.cluster_order, scene.cluster_odist)
+    if any(x is not None for x in tables):
+        for x, name, dtype, shape in zip(
+                tables, ("cluster_meta", "cluster_order", "cluster_odist"),
+                (torch.float32, torch.int32, torch.float32),
+                ((c, 8), (c, c), (c, c))):
+            if x is None:
+                raise ValueError(f"scene has the order tables but no {name}")
+            check_tensor(x, name, dtype, shape, dev, align=4)
     n_real = real_tris(scene)
     for x, name in ((o, "o"), (d, "d")):
         check_tensor(x, name, torch.float32, (n, 3), dev)
@@ -245,6 +265,8 @@ def trace(scene: SceneData, o, d, mint, maxt, live, any_hit: bool):
         check_tensor(x, name, torch.float32, (n,), dev)
     if live is not None:
         check_tensor(live, "live", torch.bool, (n,), dev)
+    if visits is not None:
+        check_tensor(visits, "visits", torch.int32, (-(-n // WARP),), dev)
     hit = torch.empty(n, dtype=torch.bool, device=dev)
     if any_hit:
         t = tri = u = v = None
@@ -259,11 +281,143 @@ def trace(scene: SceneData, o, d, mint, maxt, live, any_hit: bool):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ptr(woop), ptr(aabb), c, n_real, ptr(o), ptr(d),
                  ptr(mint), ptr(maxt), ptr(live), n, int(any_hit), ptr(t),
-                 ptr(tri), ptr(u), ptr(v), ptr(hit), stream)
+                 ptr(tri), ptr(u), ptr(v), ptr(hit), *map(ptr, tables),
+                 ptr(visits), stream)
     if err != 0:
         raise RuntimeError(f"trace kernel launch failed: cudaError_t {err}")
     LAUNCHES["trace_any" if any_hit else "trace_closest"] += 1
     return t, tri, u, v, hit
+
+
+# ---------------------------------------------------------------------------
+# the ordered walk's plain version
+# ---------------------------------------------------------------------------
+
+def walks_ordered(scene: SceneData) -> bool:
+    """Whether the trace kernel's default build walks this scene's
+    clusters front to back: it has the order tables (8 to 128 clusters)
+    and more than one walked cluster (the cooperative walk)."""
+    return (scene.cluster_order is not None
+            and -(-real_tris(scene) // TRIS_PER_CLUSTER) > 1)
+
+
+def safe_inv(x):
+    """trace_common.cuh safe_inv: 1/x, or ±1e30 where |x| < 1e-12."""
+    return torch.where(x.abs() < 1e-12, torch.where(x >= 0, 1e30, -1e30),
+                       1.0 / x)
+
+
+def _norm2(x, y, z):
+    return (x * x + y * y) + z * z
+
+
+def cluster_hits(scene: SceneData, o, d, mint, maxt):
+    """Each ray's best hit in each walked cluster, as the kernel's scan of
+    that cluster finds it: (t, tri, u, v, hit), each [N, walked clusters]
+    (t MISS and tri 0 where the cluster holds no hit)."""
+    n_real = real_tris(scene)
+    w = scene.woop_o
+    cols = []
+    for c in range(-(-n_real // TRIS_PER_CLUSTER)):
+        lo = c * TRIS_PER_CLUSTER
+        hi = min(lo + TRIS_PER_CLUSTER, n_real)
+        t, tri, u, v, hit = dense.intersect_soup(
+            o, d, w[:, 3 * lo:3 * hi].contiguous(), mint, maxt)
+        cols.append((t, tri + lo, u, v, hit))
+    return tuple(torch.stack(x, 1) for x in zip(*cols))
+
+
+def warp_hints(meta, o_w, want_w):
+    """Each warp's hint cluster: the centre (meta [C, 8] columns 0-2)
+    nearest the origin of its first wanting lane (o_w [W, 32, 3], want_w
+    [W, 32]); the lowest index among equal distances, NaN never nearest.
+    [W] int64."""
+    first = torch.argmax(want_w.to(torch.uint8), 1)
+    f = o_w[torch.arange(o_w.shape[0], device=o_w.device), first]
+    dc = f[:, None, :] - meta[None, :, 0:3]
+    d2 = _norm2(dc[..., 0], dc[..., 1], dc[..., 2])
+    return torch.argmin(torch.where(d2.isnan(), float("inf"), d2), 1)
+
+
+def ordered_walk_plain(scene: SceneData, o, d, mint, maxt, live=None,
+                       any_hit: bool = False):
+    """The trace kernel's ordered walk in torch, warp by warp (lanes
+    32w ... 32w + 31 of the N rays), with its hint, origin box, caps and
+    exit test in its order of float operations: (t, tri, u, v, hit) as
+    dense.intersect_soup gives them on live lanes (misses elsewhere), and
+    visits [ceil(N / 32)] int32, the cluster positions each warp stepped
+    through. Needs walks_ordered(scene)."""
+    if not walks_ordered(scene):
+        raise ValueError("the scene is not walked in order (no order tables "
+                         "or one walked cluster)")
+    dev, n = o.device, o.shape[0]
+    meta, order, odist = (scene.cluster_meta, scene.cluster_order.long(),
+                          scene.cluster_odist)
+    n_cl = order.shape[0]
+    n_w = -(-n // WARP)
+    pad = n_w * WARP - n
+    inf = float("inf")
+    want = torch.ones(n, dtype=torch.bool, device=dev) if live is None \
+        else live.clone()
+    ct, ctri, cu, cv, chit = cluster_hits(scene, o, d, mint, maxt)
+    n_c = ct.shape[1]
+    want_w = torch.cat([want, want.new_zeros(pad)]).view(n_w, WARP)
+    o_w = torch.cat([o, o.new_zeros(pad, 3)]).view(n_w, WARP, 3)
+    walking = want_w.any(1)
+    k = warp_hints(meta, o_w, want_w)
+    # d_box: k's centre to the farthest corner of the wanting origins' box
+    ck = meta[k, 0:3]
+    lo = torch.where(want_w[..., None], o_w, inf).amin(1)
+    hi = torch.where(want_w[..., None], o_w, -inf).amax(1)
+    b = torch.fmax((lo - ck).abs(), (hi - ck).abs())
+    d_box = torch.sqrt(_norm2(b[:, 0], b[:, 1], b[:, 2]))
+    r_max = meta[0, 4]
+    # each lane's cap: its exit from the scene box, as a distance
+    inv = safe_inv(d)
+    ex = torch.fmax((meta[0, 5:8] - o) * inv, (meta[1, 5:8] - o) * inv)
+    t_exit = torch.fmin(torch.fmin(ex[:, 0], ex[:, 1]), ex[:, 2])
+    cap = torch.fmin(maxt, t_exit * 1.001 + 1e-3)
+    length = torch.sqrt(_norm2(d[:, 0], d[:, 1], d[:, 2]))
+    lane_warp = torch.arange(n, device=dev) // WARP
+    rows = torch.arange(n, device=dev)
+    t_best = torch.full((n,), dense.MISS, device=dev)
+    tri_best = torch.zeros(n, dtype=torch.int64, device=dev)
+    u_best, v_best = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+    found = torch.zeros(n, dtype=torch.bool, device=dev)
+    busy = want.clone()
+    visits = torch.zeros(n_w, dtype=torch.int32, device=dev)
+    widen = lambda x: torch.cat([x, x.new_zeros(pad)]).view(n_w, WARP)
+    for i in range(n_cl):
+        walking &= widen(busy).any(1)
+        if i % EXIT_EVERY == 0:
+            far = torch.fmin(t_best, cap) * length
+            far = torch.where(busy & ~far.isnan(), far, -inf)
+            reach = torch.cat([far, far.new_full((pad,), -inf)]).view(
+                n_w, WARP).amax(1)
+            walking &= ~((odist[k, i] - d_box) - r_max > reach)
+        if not bool(walking.any()):
+            break
+        visits += walking.int()
+        c = order[k, i][lane_warp]
+        step = walking[lane_warp] & busy & (c < n_c)
+        cc = c.clamp(max=n_c - 1)
+        hit = step & chit[rows, cc]
+        if any_hit:
+            found |= hit
+            busy &= ~found
+            continue
+        ht, htri = ct[rows, cc], ctri[rows, cc]
+        better = hit & ((ht < t_best)
+                        | (found & (ht == t_best) & (htri < tri_best)))
+        t_best = torch.where(better, ht, t_best)
+        tri_best = torch.where(better, htri, tri_best)
+        u_best = torch.where(better, cu[rows, cc], u_best)
+        v_best = torch.where(better, cv[rows, cc], v_best)
+        found |= better
+    zero = torch.zeros_like(t_best)
+    return (torch.where(found, t_best, dense.MISS),
+            torch.where(found, tri_best, 0), torch.where(found, u_best, zero),
+            torch.where(found, v_best, zero), found, visits)
 
 
 def _route(o):

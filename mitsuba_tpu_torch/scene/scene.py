@@ -155,8 +155,9 @@ class SceneData(NamedTuple):
     # clusters hold inverted boxes
     cluster_aabb: torch.Tensor = None
     # front-to-back traversal tables (accel/trace.py build_cluster_order),
-    # built for 8 <= C <= 128 clusters as in the JAX builder; the CUDA
-    # kernel does not walk them yet
+    # built for 8 <= C <= 128 clusters as in the JAX builder; the trace
+    # kernel walks the clusters in their order (accel/trace.py
+    # walks_ordered)
     cluster_meta: torch.Tensor = None    # [C, 8] f32
     cluster_order: torch.Tensor = None   # [C, C] i32
     cluster_odist: torch.Tensor = None   # [C, C] f32

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (the trace kernel, the path megakernels and the
-fused shade kernel) against their plain PyTorch versions, on the card,
+"""The port's CUDA kernels (the trace kernel, the path megakernels, the
+fused shade kernel and the probes of mitsuba_tpu_torch/experiments)
+against their plain PyTorch versions, on the card,
 on the Cornell box (also through a thin lens), the four-material scene
 (also under point, spot, directional and constant lights), the
 leaf-families scene, the lights-and-composites scene, the fog scenes
@@ -17,9 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (FOG_SCENES, LENS, fog_scene, four_materials,
-                        leaf_families_camera, leaf_families_desc,
-                        lights_scene, tex_scene, walk_build)
+from chip_smoke import (FOG_SCENES, LENS, ORDER_SCENES, fog_scene,
+                        four_materials, leaf_families_camera,
+                        leaf_families_desc, lights_scene, order_rays,
+                        order_scene, tex_scene, walk_build)
 from mitsuba_tpu_torch.accel import dense as tdense
 from mitsuba_tpu_torch.accel import megakernel as tmk
 from mitsuba_tpu_torch.accel import shade_kernel as tshade
@@ -34,6 +36,7 @@ from mitsuba_tpu_torch.scene import shapes as tshapes
 from mitsuba_tpu_torch.scene.builder import SceneDesc
 from mitsuba_tpu_torch.scene.builder import compile_scene as tcompile
 from mitsuba_tpu_torch.sensor.sensor import PerspectiveCamera
+from torch_scenes import tie_scene
 
 torch.set_num_threads(2)
 
@@ -283,21 +286,36 @@ def test_leaf_shade_matches_plain_on_card(bounce):
 # ---------------------------------------------------------------------------
 
 WALKS = {"coop": (), "simt": ("-DMITSUBA_WALK_COOP=0",)}
+# the trace kernel alone also under the index order (the default "coop"
+# build walks tables of 8 to 128 clusters in order)
+TRACE_WALKS = {**WALKS, "index": ("-DMITSUBA_WALK_ORDER=0",)}
 
 
 def _assert_walk_equal(scene, o, d, mint, maxt, live, walk):
     """The trace kernel under `walk`, closest hit and any hit, against the
-    plain version bit for bit on every lane."""
+    plain version bit for bit on every lane; where the build walks the
+    scene in order, its visits against ordered_walk_plain's too."""
     pt, ptri, pu, pv, phit = tdense.intersect_soup(o, d, scene.woop_o, mint,
                                                    maxt, live)
-    with walk_build(*WALKS[walk]):
+    ordered = walk == "coop" and ttrace.walks_ordered(scene)
+    vis = [torch.full((-(-o.shape[0] // 32),), -1, dtype=torch.int32,
+                      device=o.device) for _ in range(2)]
+    with walk_build(*TRACE_WALKS[walk], trace_only=walk not in WALKS):
         t, tri, u, v, hit = ttrace.trace(scene, o, d, mint, maxt, live,
-                                         False)
-        any_hit = ttrace.trace(scene, o, d, mint, maxt, live, True)[4]
+                                         False, vis[0])
+        any_hit = ttrace.trace(scene, o, d, mint, maxt, live, True,
+                               vis[1])[4]
     assert torch.equal(hit, phit)
     assert torch.equal(t, pt) and torch.equal(tri.long(), ptri)
     assert torch.equal(u, pu) and torch.equal(v, pv)
     assert torch.equal(any_hit, phit)
+    for mode, got in zip((False, True), vis):
+        if ordered:
+            ref = ttrace.ordered_walk_plain(scene, o, d, mint, maxt, live,
+                                            mode)
+            assert torch.equal(got, ref[5])
+        else:
+            assert bool((got == -1).all())   # written by the ordered walk
     return tri, hit
 
 
@@ -322,7 +340,7 @@ def _leaf_rays(dev, n, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("walk", list(WALKS))
+@pytest.mark.parametrize("walk", list(TRACE_WALKS))
 @pytest.mark.parametrize("n", [33, 100, 65537])
 def test_walk_matches_plain_on_card(n, walk):
     """Ragged ray counts (the last warp partly empty), dead lanes, lanes in
@@ -334,36 +352,18 @@ def test_walk_matches_plain_on_card(n, walk):
     _assert_walk_equal(scene, *shadow, walk)
 
 
-def _tie_scene(dev):
-    """Coincident triangles in the plane z = 0, among 120 small ones far
-    below: A at triangles 5, 37 (one cluster, lanes 5 and 5 + 32) and 70
-    (the next cluster); B at 40 (lane 8 + 32 of cluster 0) and 66 (lane 2
-    of cluster 1); C at 80 and 112 (lanes 16 and 16 + 32 of cluster 1).
-    120 triangles keep the author's order (Morton order starts past 256)."""
-    rs = np.random.RandomState(3)
-    tris = rs.rand(120, 3, 3) * 0.1 + np.array([0.0, 0.0, -50.0])
-    quad = lambda x0: np.array([[x0, -1.0, 0.0], [x0 + 2.0, -1.0, 0.0],
-                                [x0, 1.0, 0.0]])
-    for ids, x0 in (((5, 37, 70), -3.0), ((40, 66), -1.0), ((80, 112), 1.0)):
-        for i in ids:
-            tris[i] = quad(x0)
-    desc = SceneDesc()
-    desc.add_shape(tshapes.Mesh(tris.reshape(-1, 3),
-                                np.arange(360).reshape(120, 3)),
-                   material=desc.add_material(kind="diffuse"))
-    return tcompile(desc, device=dev)
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("walk", list(WALKS))
+@pytest.mark.parametrize("walk", list(TRACE_WALKS))
 @pytest.mark.parametrize("sparse", [False, True], ids=["all", "sparse"])
 def test_walk_ties_on_card(walk, sparse):
     """Rays that meet two or three coincident triangles at one t report the
-    lowest index (5, 40 or 80), within a cluster and across clusters. With
-    one lane in eight live, few lanes of a warp enter a cluster and the
-    cooperative branch scans it; with all live, the lanes scan it."""
+    lowest index (5, 40 or 80), within a cluster and across clusters,
+    also where the ordered walk ("coop") visits cluster 1 before
+    cluster 0. With one lane in eight live, few lanes of a warp enter a
+    cluster and the cooperative branch scans it; with all live, the lanes
+    scan it."""
     dev = _card()
-    scene = _tie_scene(dev)
+    scene = tie_scene(dev)
     assert ttrace.real_tris(scene) == 120
     rs = np.random.RandomState(4)
     n = 4096
@@ -753,3 +753,118 @@ def test_texenv_shade_matches_plain_on_card(bounce):
     assert torch.equal(k, tshade.shade_plain(scene, packed, pix, samp, 0,
                                              bounce, 5, 8))
     assert tshade.LAUNCHES["shade"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the ordered walk (the trace kernel on tables of 8 to 128 clusters)
+# ---------------------------------------------------------------------------
+
+ORDER_RES = 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ORDER_SCENES) + ["sphere"])
+def test_ordered_walk_matches_plain_on_card(name):
+    """The ordered kernel against ordered_walk_plain bit for bit, visits
+    included, and against dense.py, closest and any hit, on the eager
+    path's wavefronts at bounces 0 and 3 and their NEE shadow rays (the
+    Cornell box with an 8 x 16 sphere for "sphere": 8 clusters, 5
+    walked)."""
+    dev = _card()
+    if name == "sphere":
+        desc = tpresets.cornell_box()
+        desc.add_shape(tshapes.sphere(8, 16), material=0,
+                       to_world=ttf.translate([0.5, 0.4, 0.5])
+                       @ ttf.scale(0.2))
+        scene = tcompile(desc, device=dev)
+        cam = tpresets.cornell_camera(ORDER_RES, ORDER_RES)
+    else:
+        scene, cam = order_scene(name, ORDER_RES, dev)
+    assert ttrace.walks_ordered(scene)
+    for label, (o, d, mint, maxt, live) in order_rays(
+            scene, cam, ORDER_RES, device=dev).items():
+        ref = tdense.intersect_soup(o, d, scene.woop_o, mint, maxt, live)
+        for any_hit in (False, True):
+            vis = torch.full((-(-o.shape[0] // 32),), -1, dtype=torch.int32,
+                             device=dev)
+            k = ttrace.trace(scene, o, d, mint, maxt, live, any_hit, vis)
+            p = ttrace.ordered_walk_plain(scene, o, d, mint, maxt, live,
+                                          any_hit)
+            assert torch.equal(vis, p[5]), label
+            assert torch.equal(k[4], p[4]) and torch.equal(k[4], ref[4])
+            if not any_hit:
+                for a, b, c in zip((k[0], k[1].long(), k[2], k[3]), p[:4],
+                                   ref[:4]):
+                    assert torch.equal(a, b) and torch.equal(a, c), label
+
+
+# ---------------------------------------------------------------------------
+# the probes (csrc/roofline.cu, csrc/gather.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fma", [False, True], ids=["fmul_fadd", "ffma"])
+def test_e0_matches_plain_on_card(fma):
+    """Both variants bit-equal to e0_plain (FFMA: its fma32, one rounding a
+    step), and apart from each other on over a quarter of the lanes (58.5%
+    of these by the plain versions), so a build that does not fuse fails."""
+    from mitsuba_tpu_torch.experiments import roofline
+    dev = _card()
+    x = torch.as_tensor(np.random.RandomState(0).rand(132, 1024)
+                        .astype(np.float32) + 0.5, device=dev)
+    roofline.reset_launches()
+    k = roofline.e0(x, 64, fma)
+    assert torch.equal(k, roofline.e0_plain(x, 64, fma))
+    assert roofline.LAUNCHES["e0_ffma" if fma else "e0_fmul_fadd"] == 1
+    other = roofline.e0(x, 64, not fma)
+    assert (k != other).float().mean().item() > 0.25
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_name", ["probe", "leaf"])
+def test_e1_matches_plain_on_card(table_name):
+    """e1 at the TPU probe's inputs (40 random Woop rows, randn lanes) and
+    on the leaf-families table with its camera rays (ordered and in index
+    order), states and hit counts bit for bit."""
+    from mitsuba_tpu_torch.experiments import roofline
+    dev = _card()
+    if table_name == "probe":
+        tables = [roofline.probe_table(device=dev)]
+        st = roofline.probe_state(1000, device=dev)
+        n_iter = 64
+    else:
+        scene, cam, pix, _, st5 = _leaf(dev)
+        tables = [scene, roofline.Table(scene.woop_clusters,
+                                        scene.cluster_aabb, scene.woop_o,
+                                        scene.n_real_tris)]
+        st = st5[0:6].contiguous()
+        n_iter = 3
+    p, p_hits = roofline.e1_plain(tables[0], st, n_iter)
+    for table in tables:
+        hits = torch.zeros(n_iter, 2, dtype=torch.int32, device=dev)
+        k = roofline.e1(table, st, n_iter, hits)
+        assert torch.equal(k, p) and torch.equal(hits, p_hits)
+    assert int(p_hits[0, 0]) > 0
+
+
+@pytest.mark.cuda
+def test_gathers_match_plain_on_card():
+    """Every form, at its shape and with its index rows scaled 37 times:
+    the kernel's loads equal the plain version's and torch.gather's; an
+    index outside the table raises."""
+    from mitsuba_tpu_torch.experiments import gather_probe
+    dev = _card()
+    gather_probe.reset_launches()
+    for name in gather_probe.FORMS:
+        for scale in (1, 37):
+            tab, idx, axis, col = gather_probe.make_form(name, scale, dev)
+            k = gather_probe.gather(tab, idx, axis, col)
+            assert torch.equal(k, gather_probe.gather_plain(tab, idx, axis,
+                                                            col)), name
+            assert torch.equal(k, gather_probe.gather_library(
+                tab, idx.long(), axis, col)), name
+    assert gather_probe.LAUNCHES["gather"] == 2 * len(gather_probe.FORMS)
+    tab, idx, axis, col = gather_probe.make_form("axis0 [8,128]", 1, dev)
+    with pytest.raises(ValueError, match="outside"):
+        gather_probe.gather(tab, idx + 8, axis, col)
