@@ -6,11 +6,12 @@
 Phases, each of which must pass or the script exits non-zero:
   1. build csrc/trace.cu, csrc/megakernel.cu, csrc/shade.cu,
      csrc/roofline.cu and csrc/gather.cu with nvcc for sm_90a, one nvcc
-     each, all started together, and start phases 16 and 22's builds in
-     a child process at the lowest CPU priority, so they compile while
+     each, all started together, and start phases 16, 22 and 23's builds
+     in a child process at the lowest CPU priority, so they compile while
      phases 2-15 run: trace.cu and megakernel.cu under each walk variant
      of WALK_VARIANTS (build defines of csrc/trace_common.cuh), shade.cu
-     under "simt" and trace.cu under each of ORDER_VARIANTS; print
+     under "simt", trace.cu under each of ORDER_VARIANTS and
+     csrc/ablate.cu; print
      ptxas's register and spill reports of the default builds (and, in
      phase 16, of the SIMT walk's and the index order's), and fail on a
      spill in any build;
@@ -146,7 +147,18 @@ Phases, each of which must pass or the script exits non-zero:
      TPU probe's inputs and on the Cornell and leaf tables with the
      share of lanes that hit at each step, and every gather form's GB/s
      beside torch.gather's (or torch.take's), each kernel against its
-     plain version.
+     plain version;
+ 23. (ablate_phase) the ablation probe of mitsuba_tpu_torch/experiments/
+     ablate.py: each of its seven variants bit for bit against its plain
+     version after 8 steps on 8,192 lanes of the Cornell tables
+     (cluster_size 64, the TPU probe's start state) and of the leaf
+     tables (its camera rays), each timed at 512 steps (the transform
+     variant fewer on leaf) at 8,192 and 65,536 lanes beside its bound,
+     and the bounce's split; then max_depth 0 (unbounded) on Cornell:
+     mega_bounce at bounces 0 and 9, mega_path over 32 bounces and
+     mega_persistent at 16 spp on every 16th pixel bit for bit against
+     their plain versions, and render_persistent (counted) against the
+     eager PathTracer(max_depth=0) under the image rule.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 reports them, and {"ok": true, "device": {...}}; the line before them lists
@@ -158,7 +170,8 @@ with its lights) and under "fog" (the trace kernel and the megakernels)
 on the foggy Cornell box, under "textures" on phase 21's scenes, under
 "ordered" (the trace kernel) phase 22's times by scene and build, and
 entries for the probes' kernels (e0_ffma, e0_fmul_fadd, e1_trace_only,
-gather; no path of the program launches them); phase 16 prints
+gather, and ablate_<variant> for the seven ablation variants; no path of
+the program launches them); phase 16 prints
 {"walk": ...}, its times by variant. Exits non-zero
 without a CUDA device, and without the package beside it.
 """
@@ -344,6 +357,31 @@ ORDER_EAGER_SPP = 16        # leaf (rough plastic swapped) and texenv
 E0_CHECK_ITERS = 64
 E0_DIFFER = 0.25
 E1_SCENE_ITERS = 8
+# phase 23: the ablation probe (mitsuba_tpu_torch/experiments/ablate.py)
+# and unbounded depth. Every variant held to its plain version after
+# ABLATE_CHECK_STEPS steps on ABLATE_CHECK_LANES lanes, then timed once at
+# ABLATE_STEPS steps for each of ABLATE_LANES; the transform variant (its
+# work grows with the table's clusters) takes the steps that keep clusters
+# x lanes x steps within ABLATE_TRANSFORM_BUDGET (a power of two, at least
+# ABLATE_TRANSFORM_MIN: Cornell keeps 512, leaf's 80 clusters take 32 and
+# 16)
+ABLATE_CHECK_LANES = 8192
+ABLATE_CHECK_STEPS = 8
+ABLATE_STEPS = 512
+ABLATE_LANES = (8192, 65536)
+ABLATE_TRANSFORM_BUDGET = 2 ** 25
+ABLATE_TRANSFORM_MIN = 16
+# fp32 operations a lane-step outside the bounce's parts, counted from
+# csrc/ablate.cu as SHADE_OPS is: the keep-alive (3 max, 3 mul); the
+# transform variant's 39 a table row (o' 3 x 6, d' 3 x 5, the sum 5, the
+# min 1) and its 1 + 0·acc (2); the no-shade variant's update (mint 3,
+# the shadow origin 1, the step 2, o 6, throughput 3, L 6)
+ABLATE_KEEP_OPS = 6
+ABLATE_ROW_OPS = 39
+ABLATE_T_OPS = 2
+ABLATE_NOSHADE_OPS = 21
+UNBOUNDED_SPP = 16          # render_persistent(max_depth=0) and the eager
+UNBOUNDED_PLAIN_LANES = 16  # image; persistent_plain on every 16th pixel
 # families whose eval runs without the both-above-the-surface test
 TRANSMISSIVE = (5, 12)      # rough dielectric, difftrans
 SHADE_ROWS_IN, SHADE_ROWS_OUT = 50, 16
@@ -378,20 +416,23 @@ def check(cond, msg):
 
 def build_jobs(variants):
     """Phase 1's nvcc builds: the five libraries, or (variants) the
-    walk variants phases 16 and 22 compare: trace.cu and megakernel.cu
-    under each of WALK_VARIANTS, shade.cu under "simt", trace.cu under
-    each of ORDER_VARIANTS."""
+    builds the child process makes beside phases 2-15: the walk variants
+    phases 16 and 22 compare, trace.cu and megakernel.cu under each of
+    WALK_VARIANTS, shade.cu under "simt", trace.cu under each of
+    ORDER_VARIANTS, and phase 23's ablate.cu (the only build there without
+    defines)."""
     from mitsuba_tpu_torch.accel import megakernel as mk
     from mitsuba_tpu_torch.accel import shade_kernel as sk
     from mitsuba_tpu_torch.accel import trace
-    from mitsuba_tpu_torch.experiments import gather_probe, roofline
+    from mitsuba_tpu_torch.experiments import ablate, gather_probe, roofline
     if not variants:
         return [(trace.build, ()), (mk.build, ()), (sk.build, ()),
                 (roofline.build, ()), (gather_probe.build, ())]
     return ([(fn, defines) for defines in WALK_VARIANTS.values() if defines
              for fn in (trace.build, mk.build)]
             + [(sk.build, WALK_VARIANTS["simt"])]
-            + [(trace.build, defines) for defines in ORDER_VARIANTS.values()])
+            + [(trace.build, defines) for defines in ORDER_VARIANTS.values()]
+            + [(ablate.build, ())])
 
 
 def run_builds(jobs, shown=()):
@@ -434,13 +475,13 @@ def start_variant_builds():
 def join_variant_builds(proc, t0):
     out = proc.communicate()[0]
     check(proc.returncode == 0, f"variant builds failed:\n{out}")
-    print(f"[build] walk variants: {len(build_jobs(True))} builds beside "
-          f"phases 2-15, done {time.perf_counter() - t0:.1f} s after they "
-          f"started", flush=True)
-    # cached now: print the SIMT walk's and the index order's reports,
-    # check every build's
+    print(f"[build] walk variants and ablate.cu: {len(build_jobs(True))} "
+          f"builds beside phases 2-15, done {time.perf_counter() - t0:.1f} "
+          f"s after they started", flush=True)
+    # cached now: print the SIMT walk's, the index order's and ablate.cu's
+    # reports, check every build's
     run_builds(build_jobs(True), shown=(WALK_VARIANTS["simt"],
-                                        ORDER_VARIANTS["index"]))
+                                        ORDER_VARIANTS["index"], ()))
 
 
 def card_line():
@@ -859,8 +900,8 @@ def nee_rays(tables, state, pix, samp, bounce, max_depth, seed=0):
                        rng.sample_2d(seed, pix, dim(DIM_NEE_POS), samp))
     so = torch.where(in_med[:, None], p_event,
                      offset_ray_origin(its.p, its.ng, ds.d))
-    attempted = ((its.valid | in_med) & (bounce + 3 <= max_depth + 1)
-                 & (ds.pdf > 0))
+    attempted = ((its.valid | in_med) & (ds.pdf > 0)
+                 & (max_depth <= 0 or bounce + 3 <= max_depth + 1))
     return its, in_med, ds, so, attempted
 
 
@@ -3043,6 +3084,225 @@ def probe_phase(card, kernels):
           flush=True)
 
 
+def ablate_ops(tables, states, fam_ops):
+    """The full variant's fp32 operations a lane-step by part, bounce_work
+    (at max_depth 0, seed 1) on its plain states before steps 0-7 averaged
+    over lanes and steps: the closest walk's tests, the shadow walk's, the
+    shading's."""
+    from mitsuba_tpu_torch.experiments import ablate
+    n = states[0].shape[1]
+    pix = torch.arange(n, dtype=torch.int32, device=DEV)
+    works = [bounce_work(tables, st, pix, torch.zeros_like(pix), k, fam_ops,
+                         ablate.MAX_DEPTH, seed=ablate.SEED)
+             for k, st in enumerate(states)]
+    return {key: sum(w[key] for w in works) / (n * len(states))
+            for key in ("c_ops", "s_ops", "shade_ops")}
+
+
+def ablate_variant_ops(per, variant, clusters):
+    """fp32 operations a lane-step of `variant`: the full variant's parts
+    (ablate_ops) that it keeps, its own work in place of the parts it
+    stubs, and the keep-alive. A bound from the full variant's rays: a
+    stubbed closest hit sends other rays down the shadow walk."""
+    from mitsuba_tpu_torch.experiments import ablate as ab
+    c, sh, sd = per["c_ops"], per["s_ops"], per["shade_ops"]
+    own = {ab.FULL: c + sh + sd, ab.NO_SHADOW: c + sd, ab.NO_CLOSEST: sh + sd,
+           ab.NO_TRACES: sd, ab.NO_ATTR: c + sh + sd,
+           ab.TRANSFORM: (clusters * TRIS_PER_CLUSTER * ABLATE_ROW_OPS
+                          + ABLATE_T_OPS + sh + sd),
+           ab.NO_SHADE: c + sh + ABLATE_NOSHADE_OPS}
+    return own[variant] + ABLATE_KEEP_OPS
+
+
+def ablate_steps(variant, clusters, lanes):
+    """The steps of a timed launch: ABLATE_STEPS, the transform variant's
+    within ABLATE_TRANSFORM_BUDGET (a power of two)."""
+    from mitsuba_tpu_torch.experiments import ablate
+    if variant != ablate.TRANSFORM:
+        return ABLATE_STEPS
+    steps = ABLATE_TRANSFORM_BUDGET // (clusters * lanes)
+    steps = 1 << max(steps, 1).bit_length() - 1
+    return min(ABLATE_STEPS, max(ABLATE_TRANSFORM_MIN, steps))
+
+
+def ablate_phase(card, kernels, cornell, cam):
+    """Phase 23: the ablation probe (csrc/ablate.cu, experiments/ablate.py)
+    and unbounded depth. Every variant bit for bit against its plain
+    version after ABLATE_CHECK_STEPS steps on every lane of the Cornell
+    tables (cluster_size 64, the TPU probe's) from the probe's start state
+    and of the leaf-families tables from every 8th of its 256² camera
+    rays; then each variant timed once at ABLATE_STEPS steps (the transform
+    variant: ablate_steps) on both tables at each of ABLATE_LANES (the leaf
+    scene's lanes: its camera rays) beside its bound (ablate_variant_ops,
+    over 67 TFLOP/s), and the bounce's split (ablate.split) for each. Then
+    max_depth 0 on the megakernels (`cornell`, the phase-2 scene, and its
+    256² camera): mega_bounce at bounces 0 and 9 and mega_path over 32
+    bounces against their plain versions on every lane, bit for bit;
+    render_persistent at UNBOUNDED_SPP spp (counted) against
+    persistent_plain on every 16th pixel, bit for bit, and against the
+    eager PathTracer(max_depth=0) image under the image rule. Appends the
+    ablate_<variant> entries to `kernels` (launches 0: no path of the
+    program launches them)."""
+    from mitsuba_tpu_torch.accel import megakernel as mk
+    from mitsuba_tpu_torch.experiments import ablate as ab
+    from mitsuba_tpu_torch.film.film import Film
+    from mitsuba_tpu_torch.integrator.mega import (MegaPathTracer,
+                                                   render_persistent)
+    from mitsuba_tpu_torch.integrator.path import PathTracer, initial_state
+    from mitsuba_tpu_torch.render import render_fn
+    from mitsuba_tpu_torch.scene.builder import compile_scene
+    from mitsuba_tpu_torch.scene.presets import cornell_box
+    t_start = time.perf_counter()
+    leaf, leaf_cam = leaf_scene(CORNELL_RES, DEV)
+    n_px = CORNELL_RES ** 2
+    pix = torch.arange(n_px, dtype=torch.int32, device=DEV)
+    leaf_st = initial_state(*mk.primary_rays(leaf_cam, 0, pix, 0))
+    scenes = {
+        "cornell": (MegaPathTracer.for_scene(compile_scene(
+            cornell_box(), cluster_size=64, device=DEV)).tables,
+            {b: ab.probe_state(b, DEV) for b in ABLATE_LANES}),
+        "leaf": (MegaPathTracer.for_scene(leaf, max_depth=6).tables,
+                 {b: leaf_st[:, ::n_px // b].contiguous()
+                  for b in ABLATE_LANES})}
+    entries = [{"name": f"ablate_{name}", "route": "cuda",
+                "source": "mitsuba_tpu_torch/csrc/ablate.cu",
+                "replaces": "experiments/_exp_ablate.py:154",
+                "launches": 0, "max_abs_err": 0.0, "label": label}
+               for name, label in zip(ab.NAMES, ab.VARIANTS)]
+    splits = {}
+    for sname, (tables, starts) in scenes.items():
+        clusters = tables.woop.shape[0]
+        check(not tables.ext, f"{sname}: the ablation takes kExt = false")
+        st = starts[ABLATE_CHECK_LANES]
+        # ---- every variant against its plain version ----------------------
+        fam_ops = family_ops(tables)
+        for v, name in enumerate(ab.NAMES):
+            k = ab.run_fixed(tables, st, ABLATE_CHECK_STEPS, v)
+            if v == ab.FULL:   # step by step: the states bound the work
+                states, p, counts = [st], st, torch.zeros_like(st[:2])
+                plain_ms = 0.0
+                for s in range(ABLATE_CHECK_STEPS):
+                    ms, out = events_ms(lambda: ab.run_fixed_plain(
+                        tables, p, 1, v, bounce0=s))
+                    plain_ms += ms
+                    p, counts = out[:16], counts + out[16:18]
+                    states.append(p)
+                p = torch.cat([p, counts])
+                per = ablate_ops(tables, states[:-1], fam_ops)
+            else:
+                plain_ms, p = events_ms(lambda: ab.run_fixed_plain(
+                    tables, st, ABLATE_CHECK_STEPS, v))
+            err = compare_exact(f"ablate {name}, {sname}, "
+                                f"{ABLATE_CHECK_STEPS} steps", k, p)
+            e = entries[v]
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            e.setdefault("plain", {})[sname] = {
+                "ms": plain_ms,
+                "shape": f"{st.shape[1]} lanes x {ABLATE_CHECK_STEPS} steps"}
+            print(f"[ablate] {sname} {name}: bit-equal to the plain version "
+                  f"on {st.shape[1]} lanes after {ABLATE_CHECK_STEPS} steps; "
+                  f"closest hits {k[16].mean().item():.3f}, occluded shadow "
+                  f"rays {k[17].mean().item():.3f} a lane; plain "
+                  f"{plain_ms:.1f} ms", flush=True)
+        print(f"[ablate] {sname}: the full bounce's fp32 ops a lane-step "
+              f"over steps 0-{ABLATE_CHECK_STEPS - 1}: closest walk "
+              f"{per['c_ops']:.1f}, shadow walk {per['s_ops']:.1f}, shading "
+              f"{per['shade_ops']:.1f}", flush=True)
+        # ---- timed, beside the bound ------------------------------------------
+        for b in ABLATE_LANES:
+            us = []
+            for v, name in enumerate(ab.NAMES):
+                steps = ablate_steps(v, clusters, b)
+                ms, _ = events_ms(lambda: ab.run_fixed(tables, starts[b],
+                                                       steps, v))
+                ops = ablate_variant_ops(per, v, clusters) * b * steps
+                bound = ops / PEAK_FP32 * 1e3
+                us.append(ms * 1e3 / steps)
+                entries[v].setdefault("times", {})[f"{sname} {b}"] = {
+                    "steps": steps, "ms": ms, "us_per_step": us[-1],
+                    "bound_ms": bound}
+                print(f"[ablate] {sname}, {b} lanes, {name} "
+                      f"({ab.VARIANTS[v]}), {steps} steps: {ms:.4f} ms, "
+                      f"{us[-1]:.3f} us/step, "
+                      f"{2 * b / (us[-1] * 1e-6) / 1e6:.0f} M rays/s equiv; "
+                      f"bound {bound:.4f} ms ({ops:.4g} fp32 ops), "
+                      f"{ms / bound:.1f}x ({card})", flush=True)
+            splits[f"{sname} {b}"] = ab.split(us)
+            print(f"[ablate] split, {sname}, {b} lanes (us/step): " + ", ".join(
+                f"{key} {val:.3f}" for key, val in
+                splits[f"{sname} {b}"].items()) + f" of {us[ab.FULL]:.3f} "
+                f"({card})", flush=True)
+    t = entries[ab.TRANSFORM]["times"]
+    ratio = ((t[f"leaf {ABLATE_LANES[0]}"]["us_per_step"]
+              / t[f"cornell {ABLATE_LANES[0]}"]["us_per_step"]))
+    print(f"[ablate] transform only: leaf ({scenes['leaf'][0].woop.shape[0]} "
+          f"clusters) / Cornell (1) per step at {ABLATE_LANES[0]} lanes "
+          f"{ratio:.1f}x: the transform is not folded away", flush=True)
+    check(ratio > 10.0, f"transform variant scales {ratio:.1f}x with 80x "
+                        "the clusters: folded away?")
+    for e in entries:   # the TPU probe's shape: Cornell, 8192 lanes
+        main = e["times"][f"cornell {ABLATE_LANES[0]}"]
+        e.update({"ms": main["ms"], "steps": main["steps"],
+                  "plain_ms": e["plain"]["cornell"]["ms"],
+                  "plain_shape": e["plain"]["cornell"]["shape"],
+                  "bound_ms": main["bound_ms"], "bound_by": "operations",
+                  "library_ms": None})
+    entries[ab.FULL]["split"] = splits
+    kernels.extend(entries)
+    t_ablate = time.perf_counter() - t_start
+
+    # ---- unbounded depth on the megakernels --------------------------------
+    integ = MegaPathTracer.for_scene(cornell, max_depth=0)
+    tables, rr = integ.tables, integ.rr_depth
+    samp = torch.zeros_like(pix)
+    st0 = initial_state(*mk.primary_rays(cam, 0, pix, 0))
+    st9 = st0
+    for b in range(9):
+        st9 = mk.bounce_plain(tables, rr, 0, st9, pix, samp, 0, b)[:16]
+    for b, st in ((0, st0), (9, st9)):
+        k = mk.run_bounce(tables, rr, 0, st, pix, samp, 0, b)
+        compare_exact(f"mega_bounce, max_depth 0, bounce {b}", k,
+                      mk.bounce_plain(tables, rr, 0, st, pix, samp, 0, b))
+    k = mk.run_path(tables, rr, 0, 32, st0, pix, samp, 0)
+    compare_exact("mega_path, max_depth 0, 32 bounces", k,
+                  mk.path_plain(tables, rr, 0, 32, st0, pix, samp, 0))
+    long_paths, longest = int((k[16] > 8).sum()), int(k[16].max())
+    check(long_paths > 0, "no path went past 8 bounces at max_depth 0")
+    mk.reset_launches()
+    img_p, n_p = render_persistent(integ, cam, UNBOUNDED_SPP, seed=0)
+    torch.cuda.synchronize()
+    launches = mk.LAUNCHES["mega_persistent"]
+    check(launches == 1, f"mega_persistent launched {launches} times")
+    pst = torch.cat([st0, torch.zeros_like(st0[:8])])
+    sub = slice(0, None, UNBOUNDED_PLAIN_LANES)
+    k = mk.run_persistent(tables, rr, 0, UNBOUNDED_SPP, cam, pst, pix, samp,
+                          0)
+    compare_exact(f"mega_persistent, max_depth 0, {UNBOUNDED_SPP} spp, "
+                  f"every {UNBOUNDED_PLAIN_LANES}th pixel", k[:, sub],
+                  mk.persistent_plain(tables, rr, 0, UNBOUNDED_SPP, cam,
+                                      pst[:, sub].contiguous(),
+                                      pix[sub].contiguous(),
+                                      samp[sub].contiguous(), 0))
+    img_e, n_e = render_fn(cornell, cam, Film(CORNELL_RES, CORNELL_RES),
+                           PathTracer(max_depth=0), spp=UNBOUNDED_SPP,
+                           seed=0, device=DEV)
+    n_p, n_e = int(n_p), int(n_e)
+    image_rule(img_p, img_e, f"render_persistent vs eager, max_depth 0, "
+                             f"{UNBOUNDED_SPP} spp")
+    # the eager path stops at 32 bounces, the persistent kernel runs each
+    # path to its end: as many rays or more, within rel 1e-3
+    check(n_e <= n_p <= n_e * (1 + 1e-3),
+          f"max_depth 0 rays: persistent {n_p}, eager {n_e}")
+    print(f"[unbounded] Cornell {CORNELL_RES}², max_depth 0: "
+          f"{long_paths} of {n_px} mega_path lanes past 8 bounces (longest "
+          f"{longest}); render_persistent "
+          f"{UNBOUNDED_SPP} spp {n_p} rays, mean {img_p.mean().item():.5f}; "
+          f"eager {n_e} rays, mean {img_e.mean().item():.5f} ({card})",
+          flush=True)
+    print(f"[ablate] phase 23: ablation {t_ablate:.1f} s, unbounded "
+          f"{time.perf_counter() - t_start - t_ablate:.1f} s", flush=True)
+
+
 def walk_phase(card, cases):
     """Phase 16: each build of WALK_VARIANTS in the turns of WALK_TURNS on
     the same inputs. cases["traces"]: name -> (scene, rays, any_hit), each
@@ -3415,6 +3675,7 @@ def main():
     order_phase(card, kernels, {"cornell b0": (scene, primary, False),
                                 "cornell b0 shadow": (scene, shadow, True)})
     probe_phase(card, kernels)
+    ablate_phase(card, kernels, scene, cam)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

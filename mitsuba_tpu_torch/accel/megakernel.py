@@ -56,7 +56,7 @@ from ..bsdf.bsdf import COMPOSITE_FAMILIES, LEAF_FAMILIES as _LEAVES
 from ..bsdf.bsdf import BSDFSample
 from ..core.math import coordinate_system
 from ..core.warp import INV_FOUR_PI, INV_PI, square_to_cosine_hemisphere
-from ..integrator.path import initial_state
+from ..integrator.path import initial_state, pass_bounces
 from ..integrator.volpath import VolPathTracer
 from ..render import sample_camera
 from ..scene.scene import (MAT_ANISO_ROUGHDIFFUSE, MAT_COATING,
@@ -526,17 +526,26 @@ def bounce_plain(tables: MegaTables, rr_depth, max_depth, state, pixel,
 
 def path_plain(tables: MegaTables, rr_depth, max_depth, n_bounces, state,
                pixel, samp, seed):
-    """bounce_plain n_bounces times; the count rows are summed. A dead lane
-    comes out of a bounce unchanged, so looping on past the last live lane
-    changes nothing."""
+    """bounce_plain up to n_bounces times; the count rows are summed. A
+    dead lane comes out of a bounce unchanged, so the loop stops once no
+    lane is live: looping on would change nothing."""
     tracer = _plain(tables, max_depth, rr_depth)
     counts = torch.zeros((2, state.shape[1]), dtype=state.dtype,
                          device=state.device)
     for b in range(n_bounces):
+        if not bool((state[12] > 0.5).any()):
+            break
         state, traced, shadow = tracer.bounce(tables.plain_scene, state,
                                               seed, pixel, samp, b)
         counts = counts + torch.stack([traced, shadow]).to(state.dtype)
     return torch.cat([state, counts])
+
+
+def iter_cap(spp, max_depth):
+    """The persistent kernel's bound on a lane's bounces over its spp
+    paths: spp·max_depth + 8, with 32 bounces a path when max_depth <= 0
+    (unbounded), as the JAX run_persistent (megakernel.py:2646-2647)."""
+    return spp * pass_bounces(max_depth) + 8
 
 
 def persistent_plain(tables: MegaTables, rr_depth, max_depth, spp, camera,
@@ -545,7 +554,11 @@ def persistent_plain(tables: MegaTables, rr_depth, max_depth, spp, camera,
     at sample samp0 + s (sample 0 from the state's rows, later ones from
     the camera) through path_plain; L and the counts summed. Rows 16:24 of
     the input are taken to be zero (fresh lanes); lanes inactive on entry
-    come out unchanged, as in the kernel."""
+    come out unchanged, as in the kernel. Each path runs to its end, as in
+    the kernel: a bounded one dies by its max_depth-th bounce, an unbounded
+    one by Russian roulette or an escape. The kernel's iter_cap stops a lane
+    only where its spp paths together take more bounces than that (32 a
+    path when unbounded), which this does not model."""
     live = state[12] > 0.5
     lsum = state.new_zeros((3, state.shape[1]))
     counts = state.new_zeros((2, state.shape[1]))
@@ -557,8 +570,9 @@ def persistent_plain(tables: MegaTables, rr_depth, max_depth, spp, camera,
             o, d = primary_rays(camera, seed, pixel, samp0 + s)
             st = initial_state(o, d)
             st[12] = live.to(st.dtype)
-        out = path_plain(tables, rr_depth, max_depth, max_depth, st, pixel,
-                         samp0 + s, seed)
+        out = path_plain(tables, rr_depth, max_depth,
+                         iter_cap(spp, max_depth), st, pixel, samp0 + s,
+                         seed)
         lsum = lsum + torch.where(live, out[9:12], 0.0)
         counts = counts + out[16:18]
         last = out
@@ -1622,8 +1636,8 @@ def run_persistent(tables: MegaTables, rr_depth, max_depth, spp, camera,
         return persistent_plain(tables, rr_depth, max_depth, spp, camera,
                                 state, pixel, samp0, seed)
     cam = (ctypes.c_float * N_CAMERA)(*camera_consts(camera))
-    iter_cap = spp * max_depth + 8
     return _launch("mega_persistent", tables, state, N_PSTATE, N_PSTATE,
-                   pixel, samp0, seed, (spp, max_depth, rr_depth, iter_cap),
+                   pixel, samp0, seed,
+                   (spp, max_depth, rr_depth, iter_cap(spp, max_depth)),
                    (ctypes.addressof(cam),),
                    ext=float(camera.aperture_radius) > 0.0)

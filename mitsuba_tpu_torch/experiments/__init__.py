@@ -1,8 +1,10 @@
 """Ports of the TPU probes under experiments/ (frozen there): roofline.py
-(the fp32 ceiling and the cluster walk's rate with no shading) and
-gather_probe.py (per-lane table loads). Each kernel runs on CUDA tensors
-and its plain PyTorch version on CPU tensors; no path of the program calls
-them. Run one on the card with, e.g.,
+(the fp32 ceiling and the cluster walk's rate with no shading),
+gather_probe.py (per-lane table loads) and ablate.py (the megakernel
+bounce's cost by component: n kept-alive bounces with the closest walk,
+the shadow walk, the hit row or the shading stubbed). Each kernel runs on
+CUDA tensors and its plain PyTorch version on CPU tensors; no path of the
+program calls them. Run one on the card with, e.g.,
 `python3 -m mitsuba_tpu_torch.experiments.roofline`. time_ms times a
 kernel for them and for chip_smoke.py."""
 

@@ -36,7 +36,7 @@ from ..bsdf.bsdf import COMPOSITE_FAMILIES
 from ..scene import scene as S
 from ..scene.scene import SceneData
 from ..sensor.sensor import PerspectiveCamera
-from .path import PathTracer, initial_state
+from .path import PathTracer, initial_state, pass_bounces
 from .volpath import scene_medium
 
 # the JAX package's megakernel limits (MEGA_FAMILIES, MEGA_EM_TYPES and
@@ -158,7 +158,8 @@ class MegaPathTracer(PathTracer):
     def li_stats(self, scene: SceneData, o, d, seed, pixel_id,
                  sample_idx=0):
         """PathTracer.li_stats through run_path: (L [N, 3], traced-ray
-        count as a 0-d int64 tensor)."""
+        count as a 0-d int64 tensor). An unbounded tracer (max_depth <= 0)
+        runs up to 32 bounces, as the JAX MegaPathTracer."""
         if scene is not self.tables.scene:
             raise ValueError("MegaPathTracer was built for another scene; "
                              "use MegaPathTracer.for_scene(scene)")
@@ -166,7 +167,7 @@ class MegaPathTracer(PathTracer):
         samp = torch.as_tensor(sample_idx, device=o.device)
         samp = samp.expand(n).to(torch.int32).contiguous()
         out = run_path(self.tables, self.rr_depth, self.max_depth,
-                       self.max_depth, initial_state(o, d),
+                       pass_bounces(self.max_depth), initial_state(o, d),
                        pixel_id.to(torch.int32).contiguous(), samp, seed)
         n_rays = out[16:18].to(torch.int64).sum()
         return out[9:12].T, n_rays

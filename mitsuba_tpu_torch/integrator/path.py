@@ -9,8 +9,9 @@ Every lane of the wavefront runs every bounce; terminated lanes ride along
 unchanged and the trace kernel skips them (`live`). Defaults match
 the reference: rr_depth=5, RR continue probability
 q = min(max(throughput)·η², 0.95), power-heuristic MIS, depth counts path
-vertices (camera = 1) (ref: path.cpp:120-295). Unbounded paths
-(max_depth <= 0) and hidden emitters are not ported.
+vertices (camera = 1) (ref: path.cpp:120-295). max_depth <= 0 is
+unbounded, as in the JAX PathTracer: no depth guard, and li_stats runs
+UNBOUNDED_BOUNCES bounces. Hidden emitters are not ported.
 
 The shading tail of a bounce (NEE BSDF eval, shadow trace, MIS, BSDF
 sampling, Russian roulette) runs either eagerly (`_shade_eager`, the JAX
@@ -38,6 +39,15 @@ from .common import (DIM_BSDF_U1, DIM_BSDF_U2, DIM_NEE_POS, DIM_NEE_SEL,
                      ray_mint)
 
 _MAXT = 1e30
+# bounces li_stats runs for an unbounded path (max_depth <= 0), as the JAX
+# PathTracer (mitsuba_tpu/integrator/path.py:383)
+UNBOUNDED_BOUNCES = 32
+
+
+def pass_bounces(max_depth: int) -> int:
+    """Bounces a pass runs: max_depth, or UNBOUNDED_BOUNCES when it is
+    unbounded (<= 0)."""
+    return max_depth if max_depth > 0 else UNBOUNDED_BOUNCES
 
 
 class _Vertex(NamedTuple):
@@ -76,7 +86,8 @@ class PathTracer:
     marks the copy it returns `settled`; render_fn does so once per
     render, and li_stats and bounce on a tracer that is not settled do
     so per call."""
-    max_depth: int = 8          # path vertices, camera included
+    max_depth: int = 8          # path vertices, camera included; <= 0:
+                                # unbounded
     rr_depth: int = 5
     accel: str = "auto"
     sampler: str = "independent"
@@ -89,8 +100,6 @@ class PathTracer:
     count_attempted = True
 
     def __post_init__(self):
-        if self.max_depth <= 0:
-            raise NotImplementedError("max_depth <= 0 (unbounded paths)")
         if self.accel not in ("auto", "plain"):
             raise ValueError(f"accel must be 'auto' or 'plain', "
                              f"got {self.accel!r}")
@@ -149,7 +158,7 @@ class PathTracer:
         tracer = self.specialized_for(scene, o.device)
         state = initial_state(o, d)
         n_rays = torch.zeros((), dtype=torch.int64, device=o.device)
-        for bounce in range(self.max_depth):
+        for bounce in range(pass_bounces(self.max_depth)):
             state, traced, shadow = tracer.bounce(scene, state, seed,
                                                   pixel_id, sample_idx, bounce)
             n_rays = n_rays + traced.sum() + shadow.sum()
@@ -171,12 +180,15 @@ class PathTracer:
         v = self._vertex(scene, state, seed, pixel, samp, bounce)
         if self.fused_shade == "on":
             # one kernel for the tail: NEE BSDF eval, shadow trace, MIS,
-            # BSDF sampling, RR (the same RNG dims as _shade_eager)
+            # BSDF sampling, RR (the same RNG dims as _shade_eager); an
+            # unbounded path passes the kernel's two depth guards with
+            # this vertex's own depth as the bound
             from ..accel.shade_kernel import fused_shade
             new = fused_shade(scene, v.its, v.frame, v.mat, v.d,
                               v.throughput, v.L, v.ds, v.active, v.eta_scale,
                               seed, pixel, samp, bounce, self.rr_depth,
-                              self.max_depth)
+                              self.max_depth if self.max_depth > 0
+                              else bounce + 2)
             counted = v.shadow
         else:
             new, unoccluded = self._shade_eager(scene, v, bounce + 2)
@@ -238,7 +250,8 @@ class PathTracer:
             scene, mat, Frame.from_normal(its.ns), its.uv)
 
         # ---- next-event estimation from the event point ----------------
-        nee_allowed = event & (depth + 1 <= self.max_depth + 1)
+        nee_allowed = event & (depth + 1 <= self.max_depth + 1) \
+            if self.max_depth > 0 else event
         ds = sample_direct(scene, p_event, d1(DIM_NEE_SEL), d2(DIM_NEE_POS))
         return _Vertex(its, frame, mat, d, throughput, L, ds, active, event,
                        nee_allowed & (ds.pdf > 0), state[15], d1, d2,
@@ -305,8 +318,9 @@ class PathTracer:
         o_next = offset_ray_origin(its.p, its.ng, d_next)
         d_next, o_next, bs = self._medium_continue(v, d_next, o_next, bs)
         throughput_next = throughput * bs.weight
-        alive = (v.event & (bs.pdf > 0) & (throughput_next > 0).any(-1)
-                 & (depth <= self.max_depth))
+        alive = v.event & (bs.pdf > 0) & (throughput_next > 0).any(-1)
+        if self.max_depth > 0:
+            alive = alive & (depth <= self.max_depth)
 
         # ---- Russian roulette (path.cpp:278-289) -----------------------
         eta_scale = eta_scale * bs.eta

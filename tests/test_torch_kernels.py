@@ -7,7 +7,9 @@ leaf-families scene, the lights-and-composites scene, the fog scenes
 (chip_smoke.py FOG_SCENES: the homogeneous medium), the proctex scene
 (the megakernels' procedural albedo) and the texenv scene (the trace and
 shade kernels under bitmap textures, normal and bump maps and an
-envmap). Every test is marked `cuda` and skips without a card.
+envmap), and the ablation probe's seven variants (csrc/ablate.cu) and
+mega_bounce at unbounded depth on the Cornell box. Every test is marked
+`cuda` and skips without a card.
 The file
 imports neither jax nor the JAX package, so it also runs where only the
 port is installed:
@@ -27,6 +29,7 @@ from mitsuba_tpu_torch.accel import megakernel as tmk
 from mitsuba_tpu_torch.accel import shade_kernel as tshade
 from mitsuba_tpu_torch.accel import trace as ttrace
 from mitsuba_tpu_torch.core import transform as ttf
+from mitsuba_tpu_torch.experiments import ablate
 from mitsuba_tpu_torch.integrator.mega import (MegaPathTracer,
                                                MegaVolPathTracer)
 from mitsuba_tpu_torch.integrator.path import PathTracer, initial_state
@@ -868,3 +871,44 @@ def test_gathers_match_plain_on_card():
     tab, idx, axis, col = gather_probe.make_form("axis0 [8,128]", 1, dev)
     with pytest.raises(ValueError, match="outside"):
         gather_probe.gather(tab, idx + 8, axis, col)
+
+
+# ---------------------------------------------------------------------------
+# the ablation probe (experiments/ablate.py) and unbounded depth
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", range(len(ablate.VARIANTS)),
+                         ids=ablate.NAMES)
+def test_ablate_matches_plain_on_card(variant):
+    """Each variant of csrc/ablate.cu against its plain version on the
+    Cornell tables (cluster_size 64), 1,024 lanes of the probe's start
+    state over 8 steps: the state and the count rows, bit for bit."""
+    dev = _card()
+    scene = tcompile(tpresets.cornell_box(), cluster_size=64, device=dev)
+    tables = MegaPathTracer.for_scene(scene).tables
+    st = ablate.probe_state(1024, dev)
+    ablate.reset_launches()
+    k = ablate.run_fixed(tables, st, 8, variant)
+    p = ablate.run_fixed_plain(tables, st, 8, variant)
+    assert torch.equal(k, p)
+    assert ablate.LAUNCHES == {f"ablate_{n}": int(n == ablate.NAMES[variant])
+                               for n in ablate.NAMES}
+
+
+@pytest.mark.cuda
+def test_mega_bounce_unbounded_on_card():
+    """mega_bounce at max_depth 0 (unbounded) against bounce_plain at
+    bounce 9, where a bound of 8 would already have stopped every path:
+    bit for bit, with shadow rays attempted and paths still alive; at
+    max_depth 8 the same bounce attempts none and ends every path."""
+    dev = _card()
+    tables, _, pix, samp, st = _mega_inputs(dev)
+    for b in range(9):
+        st = tmk.bounce_plain(tables, 5, 0, st, pix, samp, 7, b)[:16]
+    k = tmk.run_bounce(tables, 5, 0, st, pix, samp, 7, 9)
+    assert torch.equal(k, tmk.bounce_plain(tables, 5, 0, st, pix, samp, 7,
+                                           9))
+    assert (k[12] > 0.5).any() and (k[17] > 0).any()
+    bounded = tmk.run_bounce(tables, 5, 8, st, pix, samp, 7, 9)
+    assert not (bounded[12] > 0.5).any() and not (bounded[17] > 0).any()

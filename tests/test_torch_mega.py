@@ -245,3 +245,29 @@ def test_plain_bounce_rows(cornell):
     assert (per[17, live] == 3).all() and torch.equal(per[:, ~live],
                                                       pst[:, ~live])
     assert torch.equal(per[21], per[22]) and (per[22, live] >= 3).all()
+
+
+def test_unbounded_matches_jax(cornell):
+    """max_depth=0 (unbounded) on the megakernels' plain versions against
+    the JAX XLA PathTracer(max_depth=0) at 16², 2 spp (test_torch_path's
+    passes): MegaPathTracer.li_stats (32 bounces, as the JAX
+    MegaPathTracer) lane by lane (>= 99% within rel 1e-3) with the ray
+    counts within rel 1e-4, and render_persistent (each path to its end)
+    under the image rule with its ray count within rel 1e-4."""
+    from test_torch_path import (UNB_RES, UNB_SEED, UNB_SPP, camera_passes,
+                                 jax_li_passes, port_li_passes)
+    jscene, tscene, _ = cornell
+    passes = camera_passes(jpresets.cornell_camera(UNB_RES, UNB_RES),
+                           UNB_RES, UNB_SPP, UNB_SEED)
+    jL, jn = jax_li_passes(JPath(max_depth=0).specialized_for(jscene),
+                           jscene, passes, UNB_SEED)
+    integ = MegaPathTracer.for_scene(tscene, max_depth=0)
+    tL, tn = port_li_passes(integ, tscene, passes, UNB_SEED)
+    assert abs(tn - jn) <= 1e-4 * jn, (tn, jn)
+    rel = np.abs(tL - jL).max(-1) / np.maximum(np.abs(jL).max(-1), 1e-3)
+    assert (rel <= 1e-3).mean() >= 0.99, (rel > 1e-3).mean()
+    img, n_rays = render_persistent(
+        integ, tpresets.cornell_camera(UNB_RES, UNB_RES), UNB_SPP,
+        seed=UNB_SEED)
+    _image_rule(img.numpy(), jL.mean(0).reshape(UNB_RES, UNB_RES, 3))
+    assert abs(int(n_rays) - jn) <= 1e-4 * jn, (int(n_rays), jn)

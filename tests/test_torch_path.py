@@ -149,7 +149,72 @@ def test_render_rejects_device_mismatch(cornell):
 
 
 def test_path_tracer_rejects_unported():
-    with pytest.raises(NotImplementedError, match="max_depth"):
-        TPath(max_depth=0)
+    """An unknown accel raises; max_depth <= 0, unbounded paths, is
+    ported now and constructs (test_unbounded_matches_jax)."""
+    assert TPath(max_depth=0).max_depth == 0
+    assert TPath(max_depth=-1).max_depth == -1
     with pytest.raises(ValueError, match="accel"):
         TPath(accel="pallas")
+
+
+UNB_RES, UNB_SPP, UNB_SEED = 16, 2, 3
+
+
+def camera_passes(jcam, res, spp, seed):
+    """render()'s camera rays of a res² film for sample passes 0..spp-1,
+    from the JAX sensor: [(o, d) numpy [res², 3]] a pass."""
+    from mitsuba_tpu.core import rng as jrng
+    from mitsuba_tpu.integrator.common import DIM_APERTURE, DIM_PIXEL
+    px = jnp.arange(res * res, dtype=jnp.uint32)
+
+    @jax.jit
+    def rays(s):
+        jit = jrng.sample_2d(seed, px, DIM_PIXEL, s)
+        pos = jnp.stack([(px % res).astype(jnp.float32) + jit[:, 0],
+                         (px // res).astype(jnp.float32) + jit[:, 1]], -1)
+        return jcam.sample_ray(pos, jrng.sample_2d(seed, px, DIM_APERTURE,
+                                                   s))
+    return [tuple(np.array(x) for x in rays(jnp.uint32(s)))
+            for s in range(spp)]
+
+
+def jax_li_passes(jint, jscene, passes, seed):
+    """The JAX integrator's li_stats over camera_passes' rays, compiled
+    once (test_torch_shade._compiled): (L [spp, N, 3], summed ray count)."""
+    from test_torch_shade import _compiled
+    px = jnp.arange(passes[0][0].shape[0], dtype=jnp.uint32)
+    args = lambda o, d, s: (jscene, jnp.asarray(o), jnp.asarray(d),
+                            jnp.uint32(seed), px, jnp.uint32(s))
+    fn = _compiled(jint.li_stats, *args(*passes[0], 0))
+    out = [fn(*args(o, d, s)) for s, (o, d) in enumerate(passes)]
+    return (np.stack([np.asarray(L) for L, _ in out]),
+            sum(int(n) for _, n in out))
+
+
+def port_li_passes(tint, tscene, passes, seed):
+    """The port's li_stats over the same passes: (L [spp, N, 3], rays)."""
+    out = [tint.li_stats(tscene, torch.as_tensor(o), torch.as_tensor(d),
+                         seed, torch.arange(o.shape[0]), s)
+           for s, (o, d) in enumerate(passes)]
+    return (np.stack([L.numpy() for L, _ in out]),
+            sum(int(n) for _, n in out))
+
+
+def test_unbounded_matches_jax(cornell):
+    """PathTracer(max_depth=0), unbounded (no depth guard, 32 bounces a
+    pass), against the JAX PathTracer(max_depth=0) at 16², 2 spp on
+    render()'s camera rays: the image rule on the pass mean, the ray counts
+    within rel 1e-4, >= 99% of the lanes within rel 1e-3; and it traces
+    more rays than max_depth 8 on the same rays (paths go past 8)."""
+    jscene, tscene = cornell
+    passes = camera_passes(jpresets.cornell_camera(UNB_RES, UNB_RES),
+                           UNB_RES, UNB_SPP, UNB_SEED)
+    jL, jn = jax_li_passes(JPath(max_depth=0).specialized_for(jscene),
+                           jscene, passes, UNB_SEED)
+    tL, tn = port_li_passes(TPath(max_depth=0), tscene, passes, UNB_SEED)
+    _image_rule(tL.mean(0), jL.mean(0))
+    assert abs(tn - jn) <= 1e-4 * jn, (tn, jn)
+    rel = np.abs(tL - jL).max(-1) / np.maximum(np.abs(jL).max(-1), 1e-3)
+    assert (rel <= 1e-3).mean() >= 0.99, (rel > 1e-3).mean()
+    _, n8 = port_li_passes(TPath(max_depth=8), tscene, passes, UNB_SEED)
+    assert tn > n8, (tn, n8)

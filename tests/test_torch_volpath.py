@@ -299,9 +299,9 @@ def test_beer_lambert():
 
 
 def test_volpath_options():
-    """Unbounded paths are not ported, and there is no fused tail."""
-    with pytest.raises(NotImplementedError, match="unbounded"):
-        VolPathTracer(max_depth=0)
+    """There is no fused tail; max_depth <= 0, unbounded paths, is ported
+    now and constructs (test_unbounded_volpath_matches_jax)."""
+    assert VolPathTracer(max_depth=0).max_depth == 0
     with pytest.raises(ValueError, match="fused"):
         VolPathTracer(fused_shade="on")
     with pytest.raises(ValueError, match="fused"):
@@ -388,3 +388,28 @@ def test_mega_medium_gates():
     assert tables.medium == tuple(float(np.float32(x)) for x in (
         *FOG_CORNELL["sigma_t"], *FOG_CORNELL["albedo"], FOG_CORNELL["g"],
         1e30))
+
+
+def test_unbounded_volpath_matches_jax():
+    """VolPathTracer(max_depth=0), unbounded (no depth guard, 32 bounces a
+    pass, as the JAX volpath.py:108-109, :171-172, :197), on the foggy
+    Cornell box against the JAX VolPathTracer(max_depth=0) at 16², 2 spp
+    on render()'s camera rays (test_torch_path's passes): the image rule
+    on the pass mean, the ray counts (active lanes and unoccluded NEE rays)
+    within rel 1e-4, and >= 99% of the lanes within rel 2e-3 / abs 2e-4."""
+    from test_torch_path import (UNB_RES, UNB_SEED, UNB_SPP, camera_passes,
+                                 jax_li_passes, port_li_passes)
+    jscene = jbuilder.compile_scene(fog_cornell_desc(jbuilder, jpresets))
+    tscene = tbuilder.compile_scene(fog_cornell_desc(tbuilder, tpresets),
+                                    device="cpu")
+    passes = camera_passes(jpresets.cornell_camera(UNB_RES, UNB_RES),
+                           UNB_RES, UNB_SPP, UNB_SEED)
+    jL, jn = jax_li_passes(
+        JVol(max_depth=0, accel="dense").specialized_for(jscene), jscene,
+        passes, UNB_SEED)
+    tL, tn = port_li_passes(VolPathTracer(max_depth=0), tscene, passes,
+                            UNB_SEED)
+    assert np.isfinite(jL).all() and jL.mean() > 0.005
+    _image_rule(tL.mean(0), jL.mean(0))
+    assert abs(tn - jn) <= 1e-4 * jn, (tn, jn)
+    _lanes_close(tL.reshape(-1, 3), jL.reshape(-1, 3))
