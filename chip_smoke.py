@@ -158,7 +158,20 @@ Phases, each of which must pass or the script exits non-zero:
      mega_bounce at bounces 0 and 9, mega_path over 32 bounces and
      mega_persistent at 16 spp on every 16th pixel bit for bit against
      their plain versions, and render_persistent (counted) against the
-     eager PathTracer(max_depth=0) under the image rule.
+     eager PathTracer(max_depth=0) under the image rule;
+ 24. (prb_phase) config 4, the training path, on the Cornell box at 256²,
+     8 bounces: five steps of plain gradient descent on the red and green
+     walls' albedos and the light's radiance toward the preset's image,
+     each step a detached render of 4 spp, the per-pixel L2 loss and one
+     PRBPathTracer.li_and_grad (integrator/prb.py) a sample pass, with
+     the trace kernel's launches counted and the loss required to fall
+     at every step; then one step through the trace kernel against
+     accel="plain" (L bit for bit, gradients within 1e-5·max|g|), its
+     forward with fused_shade "on" against "off", PRB against
+     loss.backward() through render_fn (tests/test_prb.py:61-69's rule;
+     without roulette on every entry, with it on the radiance), and the
+     PRB step, the naive step and a detached forward timed beside their
+     peak memory and trace launches.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 reports them, and {"ok": true, "device": {...}}; the line before them lists
@@ -171,7 +184,10 @@ on the foggy Cornell box, under "textures" on phase 21's scenes, under
 "ordered" (the trace kernel) phase 22's times by scene and build, and
 entries for the probes' kernels (e0_ffma, e0_fmul_fadd, e1_trace_only,
 gather, and ablate_<variant> for the seven ablation variants; no path of
-the program launches them); phase 16 prints
+the program launches them), and under "prb" (the trace kernel) phase
+24's launches over the descent and a PRB step's, a naive step's and a
+detached forward's launches, CUDA-event times and peak memory; phase 16
+prints
 {"walk": ...}, its times by variant. Exits non-zero
 without a CUDA device, and without the package beside it.
 """
@@ -386,6 +402,14 @@ UNBOUNDED_PLAIN_LANES = 16  # image; persistent_plain on every 16th pixel
 TRANSMISSIVE = (5, 12)      # rough dielectric, difftrans
 SHADE_ROWS_IN, SHADE_ROWS_OUT = 50, 16
 SHADE_ROWS_DEAD = 11        # act, p, d, L, eta: what an inactive lane reads
+# phase 24: config 4, path-replay backprop (integrator/prb.py) on the
+# Cornell box at CORNELL_RES², MAX_DEPTH bounces
+PRB_SPP = 4                 # sample passes a training step
+PRB_STEPS = 5               # plain gradient descent steps
+PRB_SEED = 0                # the target's and every descent step's
+PRB_ROWS = (1, 2)           # the red and green walls' material rows
+PRB_START = 0.6             # their albedos and the light's radiance, scaled
+PRB_LR = {"mat_params": 20.0, "em_radiance": 100.0}   # descent step sizes
 
 @contextlib.contextmanager
 def walk_build(*defines, trace_only=False):
@@ -3303,6 +3327,210 @@ def ablate_phase(card, kernels, cornell, cam):
           f"{time.perf_counter() - t_start - t_ablate:.1f} s", flush=True)
 
 
+def peak_run(fn):
+    """(CUDA-event ms, wall s, torch.cuda.max_memory_allocated in MiB
+    after reset_peak_memory_stats, memory allocated before in MiB, fn's
+    result) of one fn()."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 20
+    t0 = time.perf_counter()
+    ms, out = events_ms(fn)
+    wall = time.perf_counter() - t0
+    return ms, wall, torch.cuda.max_memory_allocated() / 2 ** 20, base, out
+
+
+def prb_phase(card, kernels, scene, cam):
+    """Phase 24: config 4 on the Cornell box (`scene`, `cam`: phase 2's,
+    CORNELL_RES², MAX_DEPTH bounces), the training path of the port.
+    PRB_STEPS steps of plain gradient descent on the red and green walls'
+    albedos and the light's radiance, started at PRB_START times the
+    preset's, toward a target rendered with the preset's values; the
+    target and every step draw the sample stream of PRB_SEED, so the loss
+    is a smooth function of the values, 0 at the preset's. Each step
+    renders PRB_SPP sample passes detached, forms the per-pixel L2 loss,
+    turns it into each sample's dL (the box filter: ∂loss/∂pixel / spp)
+    and calls PRBPathTracer.li_and_grad once a pass; the trace kernel's
+    launches counted over the loop, the loss printed a step and required
+    to fall.
+    Then one step at the final values and a new seed: through the trace
+    kernel against accel="plain" (L bit for bit on every lane, gradients
+    within 1e-5·max|g|), the forward with fused_shade "on" against "off"
+    on every lane, PRB against loss.backward() through render_fn
+    (fused_shade "off") by tests/test_prb.py:61-69's rule (every entry
+    without roulette, the radiance with it: PRB holds roulette detached,
+    naive autograd differentiates it), and the PRB
+    step, the naive step and one detached forward each timed (wall and
+    CUDA events) beside its peak memory and trace launches. Adds a "prb"
+    object to the trace kernel's two entries of `kernels`."""
+    from mitsuba_tpu_torch.accel import trace
+    from mitsuba_tpu_torch.film.film import Film
+    from mitsuba_tpu_torch.integrator.path import PathTracer
+    from mitsuba_tpu_torch.integrator.prb import PRBPathTracer
+    from mitsuba_tpu_torch.render import render_fn, sample_camera
+    t_start = time.perf_counter()
+    dev = scene.device
+    res = cam.width
+    film = Film(res, cam.height, "box")
+    px = torch.arange(res * cam.height, device=dev)
+    with torch.no_grad():
+        target = render_fn(scene, cam, film, PathTracer(max_depth=MAX_DEPTH),
+                           PRB_SPP, seed=PRB_SEED, device=dev)[0]
+    mask = {"mat_params": torch.zeros_like(scene.mat_params),
+            "em_radiance": torch.ones_like(scene.em_radiance)}
+    mask["mat_params"][list(PRB_ROWS), 0:3] = 1.0
+    params = {k: getattr(scene, k) * (1.0 - (1.0 - PRB_START) * m)
+              for k, m in mask.items()}
+
+    def loss_of(img):
+        return ((img - target) ** 2).mean()
+
+    def prb_step(params, seed, tracer):
+        """(loss, gradients summed over the passes, each pass's L)."""
+        sc = scene._replace(**params)
+        with torch.no_grad():
+            img = render_fn(sc, cam, film, tracer, PRB_SPP, seed,
+                            device=dev)[0]
+        loss = loss_of(img)
+        dL = (2.0 * (img - target) / img.numel()).reshape(-1, 3) / PRB_SPP
+        grads = {k: torch.zeros_like(v) for k, v in params.items()}
+        Ls = []
+        for s in range(PRB_SPP):
+            _, o, d = sample_camera(cam, res, seed, px, s)
+            L, g = tracer.li_and_grad(sc, o, d, seed, px, s, dL)
+            Ls.append(L)
+            for k in grads:
+                grads[k] += g[k]
+        return loss.item(), grads, Ls
+
+    def naive_step(params, seed, rr_depth=PathTracer.rr_depth):
+        live = {k: v.clone().requires_grad_() for k, v in params.items()}
+        img = render_fn(scene._replace(**live), cam, film,
+                        PathTracer(max_depth=MAX_DEPTH, rr_depth=rr_depth,
+                                   fused_shade="off"),
+                        PRB_SPP, seed, device=dev)[0]
+        loss = loss_of(img)
+        loss.backward()
+        return loss.item(), {k: v.grad for k, v in live.items()}
+
+    # ---- the descent, its trace launches counted -------------------------
+    prb = PRBPathTracer(max_depth=MAX_DEPTH)
+    losses = []
+    trace.reset_launches()
+    t0 = time.perf_counter()
+    for step in range(PRB_STEPS):
+        loss, grads, _ = prb_step(params, PRB_SEED, prb)
+        losses.append(loss)
+        params = {k: v - PRB_LR[k] * grads[k] * mask[k]
+                  for k, v in params.items()}
+        print(f"[prb] step {step}: loss {loss:.6g}, red albedo "
+              f"{params['mat_params'][PRB_ROWS[0], 0:3].tolist()}, light "
+              f"{params['em_radiance'][0].tolist()}", flush=True)
+    with torch.no_grad():
+        final = loss_of(render_fn(scene._replace(**params), cam, film, prb,
+                                  PRB_SPP, PRB_SEED, device=dev)[0]).item()
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    launches = dict(trace.LAUNCHES)
+    losses.append(final)
+    want = (3 * PRB_STEPS + 1) * PRB_SPP * MAX_DEPTH
+    print(f"[prb] {PRB_STEPS} steps of {PRB_SPP} spp at {res}², "
+          f"{MAX_DEPTH} bounces: {train_wall:.3f} s, losses {losses}, trace "
+          f"launches {launches} ({card})", flush=True)
+    check(all(np.isfinite(losses)), f"loss not finite: {losses}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"the loss does not fall at every step: {losses}")
+    check(losses[-1] < 0.5 * losses[0], f"the loss did not halve: {losses}")
+    for key, n in launches.items():
+        check(n == want, f"{key}: {n} launches over the descent, want {want}")
+
+    # ---- one step at the final values, by route --------------------------
+    seed = PRB_SEED + 1
+    runs = {}
+    for label, fn in (
+            ("prb", lambda: prb_step(params, seed, prb)),
+            ("prb plain", lambda: prb_step(
+                params, seed, PRBPathTracer(max_depth=MAX_DEPTH,
+                                            accel="plain"))),
+            ("prb fused", lambda: prb_step(
+                params, seed, PRBPathTracer(max_depth=MAX_DEPTH,
+                                            fused_shade="on"))),
+            ("naive", lambda: naive_step(params, seed)),
+            ("forward", lambda: render_fn(
+                scene._replace(**params), cam, film,
+                PathTracer(max_depth=MAX_DEPTH), PRB_SPP, seed,
+                device=dev))):
+        trace.reset_launches()
+        if label == "forward":
+            with torch.no_grad():
+                ms, wall, peak, base, out = peak_run(fn)
+        else:
+            ms, wall, peak, base, out = peak_run(fn)
+        runs[label] = {"ms": ms, "wall_s": wall, "peak_mib": peak,
+                       "base_mib": base, "launches": dict(trace.LAUNCHES),
+                       "out": out}
+        print(f"[prb] {label} step ({PRB_SPP} spp): wall {wall:.4f} s, "
+              f"{ms:.3f} ms by CUDA events, max_memory_allocated "
+              f"{peak:.1f} MiB ({base:.1f} MiB before), trace launches "
+              f"{runs[label]['launches']} ({card})", flush=True)
+    _, g, Ls = runs["prb"]["out"]
+    _, g_plain, Ls_plain = runs["prb plain"]["out"]
+    _, _, Ls_fused = runs["prb fused"]["out"]
+    check(all(torch.equal(a, b) for a, b in zip(Ls, Ls_plain)),
+          "PRB's L through the trace kernel differs from accel='plain'")
+    for k in g:
+        scale = g_plain[k].abs().max().item()
+        err = (g[k] - g_plain[k]).abs().max().item()
+        print(f"[prb] {k}: kernel vs plain max |Δg| {err:.3g} (max |g| "
+              f"{scale:.4g})", flush=True)
+        check(torch.isfinite(g[k]).all().item() and err <= 1e-5 * scale,
+              f"{k}: PRB gradients through the kernel vs plain {err}")
+
+    # PRB against naive autograd (tests/test_prb.py:61-69's rule): the
+    # same estimator but for roulette, which PRB holds detached and naive
+    # autograd differentiates (1/q, q from the albedo-weighted
+    # throughput); so the rule holds on every entry without roulette
+    # (rr_depth past the depth) and on the radiance with it
+    no_rr = MAX_DEPTH + 1
+    _, g_nr, _ = prb_step(params, seed, PRBPathTracer(max_depth=MAX_DEPTH,
+                                                      rr_depth=no_rr))
+    _, g_naive_nr = naive_step(params, seed, no_rr)
+    for label, ga, gb, keys in (
+            ("roulette", g, runs["naive"]["out"][1], ("em_radiance",)),
+            ("no roulette", g_nr, g_naive_nr, tuple(g))):
+        for k in g:
+            g_ad = gb[k]
+            atol = 2e-4 * max(g_ad.abs().max().item(), 1.0)
+            bad = ((ga[k] - g_ad).abs() > atol + 2e-2 * g_ad.abs()).sum()
+            print(f"[prb] {k}, {label}: PRB vs naive max |Δg| "
+                  f"{(ga[k] - g_ad).abs().max().item():.3g} (max |g| "
+                  f"{g_ad.abs().max().item():.4g}), entries off "
+                  f"test_prb's rule {bad.item()}", flush=True)
+            check(torch.isfinite(g_ad).all().item(),
+                  f"{k}, {label}: naive gradient not finite")
+            if k in keys:
+                check(bad.item() == 0, f"{k}, {label}: PRB vs naive "
+                      f"autograd, {bad.item()} entries off the rule")
+    fused = torch.cat(Ls_fused)
+    eager = torch.cat(Ls)
+    rel = ((fused - eager).abs().amax(-1)
+           / eager.abs().amax(-1).clamp(min=1e-3))
+    exact = (fused == eager).all(-1).float().mean().item()
+    print(f"[prb] forward, fused_shade on vs off: {exact:.5f} of lanes bit "
+          f"for bit, max rel {rel.max().item():.3g}, lanes off rel 1e-5: "
+          f"{(rel > 1e-5).float().mean().item():.5f}", flush=True)
+    check((rel > 1e-5).float().mean().item() <= 1e-3,
+          "PRB forward, fused_shade on vs off")
+    for entry in kernels[:2]:
+        name = entry["name"]
+        entry["prb"] = {"descent_launches": launches[name], **{
+            label: {"launches": runs[label]["launches"][name],
+                    "step_ms": runs[label]["ms"],
+                    "peak_mib": runs[label]["peak_mib"]}
+            for label in ("prb", "naive", "forward")}}
+    print(f"[prb] phase {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
 def walk_phase(card, cases):
     """Phase 16: each build of WALK_VARIANTS in the turns of WALK_TURNS on
     the same inputs. cases["traces"]: name -> (scene, rays, any_hit), each
@@ -3676,6 +3904,7 @@ def main():
                                 "cornell b0 shadow": (scene, shadow, True)})
     probe_phase(card, kernels)
     ablate_phase(card, kernels, scene, cam)
+    prb_phase(card, kernels, scene, cam)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

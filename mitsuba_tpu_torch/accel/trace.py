@@ -4,7 +4,9 @@ pallas_occluded, and the host-side cluster table builders).
 
 `intersect` (closest hit) and `occluded` (any hit) run the kernel for CUDA
 tensors and the plain version, accel/dense.py, for CPU tensors. There is no
-fallback: on a CUDA tensor a failed build or launch raises. The kernel is
+fallback: on a CUDA tensor a failed build or launch raises, and so does
+an input that requires grad under grad mode (`check_tensor`, which every
+kernel wrapper of the port calls: no kernel has a backward). The kernel is
 built from the repository's sources at first use, with nvcc into
 build/kernels/, and bound through a plain C interface with ctypes.
 
@@ -221,6 +223,15 @@ def _bind(path: Path):
 
 
 def check_tensor(x: torch.Tensor, name, dtype, shape, device, align=1):
+    """Refuse an input a kernel cannot take: of another device, dtype or
+    shape, not contiguous or aligned, or requiring grad under grad mode
+    (no kernel has a backward, so its launch would cut the autograd graph
+    without a word)."""
+    if x.requires_grad and torch.is_grad_enabled():
+        raise ValueError(
+            f"{name} requires grad: the kernel has no backward; detach the "
+            f"input, run under torch.no_grad(), or take the plain version "
+            f"(accel='plain', fused_shade='off')")
     if x.device != device or x.dtype != dtype or tuple(x.shape) != shape \
             or not x.is_contiguous() or x.data_ptr() % align:
         raise ValueError(

@@ -34,6 +34,14 @@ LEAF_FAMILIES = (S.MAT_DIFFUSE, S.MAT_CONDUCTOR, S.MAT_ROUGH_CONDUCTOR,
                  S.MAT_DIFFTRANS, S.MAT_ANISO_ROUGHDIFFUSE)
 COMPOSITE_FAMILIES = (S.MAT_MIXTURE, S.MAT_COATING, S.MAT_ROUGH_COATING)
 PORTED_FAMILIES = LEAF_FAMILIES + COMPOSITE_FAMILIES
+# leaf families whose sampled direction is a function of wi and the draws
+# alone (a cosine-weighted, mirror or pass-through lobe, picked by a
+# comparison): a ray leaving such a surface carries no gradient of the
+# material rows
+FIXED_DIRECTION_FAMILIES = frozenset({
+    S.MAT_DIFFUSE, S.MAT_CONDUCTOR, S.MAT_PLASTIC, S.MAT_ROUGH_DIFFUSE,
+    S.MAT_NULL, S.MAT_THIN_DIELECTRIC, S.MAT_DIFFTRANS,
+    S.MAT_ANISO_ROUGHDIFFUSE})
 
 
 class BSDFSample(NamedTuple):
@@ -782,19 +790,28 @@ def _tex_override(scene: S.SceneData, params, uv, lod_extent=None):
                       params[:, 10:]], dim=1)
 
 
-def resolve_material(scene: S.SceneData, mat_id, uv=None, families=None,
-                     lod_extent=None) -> MatInfo:
-    """Gather the material rows (mat_id -1 reads row 0, as in the JAX
-    package; such lanes are masked by the caller), resolved at the hits'
-    uv [N, 2] (_tex_override; None: untextured), and, when `families`
-    holds a composite code (None: all), each composite's child rows
-    through param slots 18 and 19, resolved alike, and its mixture weight
-    (slot 20, or the first channel of the weight texture of slot 21);
-    leaf lanes alias their own row with weight 1."""
+def resolve_params(scene: S.SceneData, mat_id, uv=None, lod_extent=None):
+    """The hits' material rows with one gather (port of the JAX
+    resolve_params, bsdf.py:822-843): (type codes [N], rows [N, 24])
+    resolved at the hits' uv [N, 2] (_tex_override; None: untextured).
+    mat_id -1 reads row 0, as in the JAX package; such lanes are masked
+    by the caller. The rows are built with torch.cat and torch.where, so
+    autograd sees through them to scene.mat_params. Composite children
+    are left unresolved (resolve_material resolves them)."""
     params = _tex_override(scene, scene.mat_params[torch.clamp(mat_id,
                                                                min=0)],
                            uv, lod_extent)
-    mtype = params[:, 12].long()
+    return params[:, 12].long(), params
+
+
+def resolve_material(scene: S.SceneData, mat_id, uv=None, families=None,
+                     lod_extent=None) -> MatInfo:
+    """The material rows of resolve_params and, when `families` holds a
+    composite code (None: all), each composite's child rows through param
+    slots 18 and 19, resolved alike, and its mixture weight (slot 20, or
+    the first channel of the weight texture of slot 21); leaf lanes alias
+    their own row with weight 1."""
+    mtype, params = resolve_params(scene, mat_id, uv, lod_extent)
     if not _has_composite(families):
         return MatInfo(mtype, params, mtype, params, mtype, params,
                        torch.ones_like(params[:, 0]))
@@ -818,6 +835,13 @@ def resolve_material(scene: S.SceneData, mat_id, uv=None, families=None,
                    torch.where(is_comp[:, None], pa, params),
                    torch.where(is_comp, tb, mtype),
                    torch.where(is_comp[:, None], pb, params), w)
+
+
+def has_shading_maps(scene: S.SceneData) -> bool:
+    """Whether a material carries a normal or bump map (slot 16), which
+    perturb_shading_frame applies (a host read)."""
+    return scene.tex_meta.shape[0] > 1 and bool(
+        (scene.mat_params[:, 16] >= 0).any())
 
 
 def perturb_shading_frame(scene: S.SceneData, mat: MatInfo, frame, uv):

@@ -38,7 +38,8 @@ def _mis_frac(pdf_a, pdf_b, frac_a, frac_b):
 class DirectIntegrator(PathTracer):
     """emitter_samples/bsdf_samples mirror the plugin's Properties
     (direct.cpp:99-107). The path fields max_depth and rr_depth are unused;
-    there is no fused shading tail (fused_shade must stay "off")."""
+    there is no fused shading tail (fused_shade must stay "off") and no
+    hide_emitters (the JAX DirectIntegrator reads none)."""
     emitter_samples: int = 1
     bsdf_samples: int = 1
 
@@ -46,6 +47,8 @@ class DirectIntegrator(PathTracer):
         super().__post_init__()
         if self.fused_shade != "off":
             raise ValueError("DirectIntegrator has no fused shading tail")
+        if self.hide_emitters:
+            raise ValueError("DirectIntegrator has no hide_emitters")
 
     def li_stats(self, scene: SceneData, o, d, seed, pixel_id,
                  sample_idx=0):

@@ -58,8 +58,16 @@ _GGX_ONLY = ((S.MAT_ROUGH_DIELECTRIC, "roughdielectric"),
 class MegaPathTracer(PathTracer):
     """eq=False: the tables are tensors, compared by identity. The JAX
     class's block, pblock and sublanes (TPU tile sizes) are dropped: a
-    CUDA thread runs one lane, and the launch covers every lane."""
+    CUDA thread runs one lane, and the launch covers every lane. The
+    megakernels have no hide_emitters (nor have the JAX ones): the
+    field must stay False."""
     tables: MegaTables | None = None
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.hide_emitters:
+            raise ValueError(f"{type(self).__name__}: the megakernels have "
+                             "no hide_emitters")
 
     @staticmethod
     def supports(scene: SceneData, camera=None, film=None,

@@ -11,7 +11,17 @@ the reference: rr_depth=5, RR continue probability
 q = min(max(throughput)·η², 0.95), power-heuristic MIS, depth counts path
 vertices (camera = 1) (ref: path.cpp:120-295). max_depth <= 0 is
 unbounded, as in the JAX PathTracer: no depth guard, and li_stats runs
-UNBOUNDED_BOUNCES bounces. Hidden emitters are not ported.
+UNBOUNDED_BOUNCES bounces. hide_emitters zeroes the MIS weights of the
+environment and of an emitter hit at bounce 0, as the JAX PathTracer
+(path.py:239, :251): the camera sees no emitter.
+
+Reverse-mode autograd runs through the whole path, with respect to
+scene.mat_params and scene.em_radiance (tests/test_torch_prb.py holds it
+to central differences). The kernels have no backward: the wrappers
+refuse an input that requires grad, fused_shade="on" raises while a
+parameter table requires grad, and a bounce's rays are detached where no
+ray can depend on a parameter (`fixed_rays`), so that on such a scene the
+trace kernel sees inputs that need no gradient.
 
 The shading tail of a bounce (NEE BSDF eval, shadow trace, MIS, BSDF
 sampling, Russian roulette) runs either eagerly (`_shade_eager`, the JAX
@@ -27,8 +37,10 @@ from typing import NamedTuple
 import torch
 
 from ..accel import dense, trace
-from ..bsdf.bsdf import (eval_bsdf_ex, pdf_bsdf_ex, perturb_shading_frame,
-                         resolve_material, sample_bsdf_ex, scene_families)
+from ..bsdf.bsdf import (FIXED_DIRECTION_FAMILIES, eval_bsdf_ex,
+                         has_shading_maps, pdf_bsdf_ex,
+                         perturb_shading_frame, resolve_material,
+                         sample_bsdf_ex, scene_families)
 from ..core.math import SHADOW_EPSILON, Frame, dot
 from ..emitter.emitter import (eval_area, eval_env, pdf_direct_area,
                                pdf_direct_env, sample_direct)
@@ -48,6 +60,22 @@ def pass_bounces(max_depth: int) -> int:
     """Bounces a pass runs: max_depth, or UNBOUNDED_BOUNCES when it is
     unbounded (<= 0)."""
     return max_depth if max_depth > 0 else UNBOUNDED_BOUNCES
+
+
+def wants_param_grad(scene: SceneData) -> bool:
+    """Whether autograd is recording a gradient of the scene's parameter
+    tables (mat_params or em_radiance) here."""
+    return torch.is_grad_enabled() and (scene.mat_params.requires_grad
+                                        or scene.em_radiance.requires_grad)
+
+
+def fixed_rays(scene: SceneData, families) -> bool:
+    """Whether no ray of a path can depend on the material rows: every
+    family samples its direction from wi and the draws alone, and no
+    normal or bump map (whose bump scale is a material column) perturbs
+    the shading frame (a host read)."""
+    return (set(families) <= FIXED_DIRECTION_FAMILIES
+            and not has_shading_maps(scene))
 
 
 class _Vertex(NamedTuple):
@@ -79,13 +107,17 @@ class PathTracer:
     fused_shade: "on" runs the shading tail through
     accel/shade_kernel.py (the CUDA kernel for CUDA tensors, its plain
     version for CPU tensors) and raises NotImplementedError for a scene
-    the kernel does not support; "auto" does so for CUDA tensors when the
-    scene is supported; "off" (the JAX default) shades eagerly.
+    the kernel does not support, or while scene.mat_params or
+    scene.em_radiance requires grad under grad mode (the kernel has no
+    backward, on either device); "auto" turns it on for CUDA tensors when
+    the scene is supported and no parameter gradient is recorded, and
+    settles to "off" otherwise; "off" (the JAX default) shades eagerly.
     families: the BSDF type codes to dispatch (None: the scene's own).
-    specialized_for settles families and fused_shade for one scene and
-    marks the copy it returns `settled`; render_fn does so once per
-    render, and li_stats and bounce on a tracer that is not settled do
-    so per call."""
+    hide_emitters: bounce 0 adds no emitted radiance (the JAX field).
+    specialized_for settles families, fused_shade and fixed_rays for one
+    scene and marks the copy it returns `settled`; render_fn does so once
+    per render, and li_stats and bounce on a tracer that is not settled
+    do so per call."""
     max_depth: int = 8          # path vertices, camera included; <= 0:
                                 # unbounded
     rr_depth: int = 5
@@ -93,8 +125,11 @@ class PathTracer:
     sampler: str = "independent"
     fused_shade: str = "off"
     families: tuple | None = None
+    hide_emitters: bool = False
     # set by specialized_for only
     settled: bool = dataclasses.field(default=False, init=False, repr=False)
+    fixed_rays: bool = dataclasses.field(default=False, init=False,
+                                         repr=False)
     # the shadow rays bounce counts: attempted (the JAX PathTracer and the
     # megakernel) or, when False, unoccluded (the JAX VolPathTracer)
     count_attempted = True
@@ -109,29 +144,42 @@ class PathTracer:
         check_kind(self.sampler)
 
     def specialized_for(self, scene: SceneData, device=None) -> "PathTracer":
-        """This tracer with `families` read from the scene and fused_shade
+        """This tracer with `families` read from the scene, fused_shade
         settled to "on" or "off" for tensors on `device` (the scene's by
-        default); raises NotImplementedError for fused_shade="on" on a
-        scene the fused kernel does not support. A settled tracer is
-        returned as it is."""
+        default) and whether the scene's rays are fixed (fixed_rays);
+        raises NotImplementedError for fused_shade="on" on a scene the
+        fused kernel does not support or whose parameters autograd
+        records. A settled tracer is returned as it is."""
         if self.settled:
             return self
         families = self.families
         if families is None:
             families = scene_families(scene)
         fused = self.fused_shade
+        if fused == "on":
+            self._check_fused(scene)
         if fused != "off":
             from ..accel.shade_kernel import supports
             dev = scene.device if device is None else torch.device(device)
             ok, reason = supports(scene)
             if fused == "on" and not ok:
                 raise NotImplementedError(f"fused_shade='on': {reason}")
-            fused = "on" if ok and (fused == "on" or dev.type == "cuda") \
+            fused = "on" if ok and (fused == "on" or (
+                dev.type == "cuda" and not wants_param_grad(scene))) \
                 else "off"
         tracer = dataclasses.replace(self, families=families,
                                      fused_shade=fused)
         object.__setattr__(tracer, "settled", True)
+        object.__setattr__(tracer, "fixed_rays", fixed_rays(scene, families))
         return tracer
+
+    @staticmethod
+    def _check_fused(scene):
+        if wants_param_grad(scene):
+            raise NotImplementedError(
+                "fused_shade='on': the shade kernel has no backward, and "
+                "scene.mat_params or scene.em_radiance requires grad; use "
+                "fused_shade='off' or 'auto', or run under torch.no_grad()")
 
     def _intersect(self, scene, o, d, mint, live):
         maxt = torch.full_like(mint, _MAXT)
@@ -179,6 +227,7 @@ class PathTracer:
                 scene, state, seed, pixel, samp, bounce)
         v = self._vertex(scene, state, seed, pixel, samp, bounce)
         if self.fused_shade == "on":
+            self._check_fused(scene)
             # one kernel for the tail: NEE BSDF eval, shadow trace, MIS,
             # BSDF sampling, RR (the same RNG dims as _shade_eager); an
             # unbounded path passes the kernel's two depth guards with
@@ -211,6 +260,8 @@ class PathTracer:
         shading frame and the NEE sample."""
         o = state[0:3].T.contiguous()
         d = state[3:6].T.contiguous()
+        if self.fixed_rays:     # their gradient is 0 wherever it is taken
+            o, d = o.detach(), d.detach()
         throughput = state[6:9].T.contiguous()
         L = state[9:12].T.contiguous()
         active = state[12] > 0.5
@@ -232,6 +283,9 @@ class PathTracer:
             p_event = torch.where(scatter[:, None], p_scatter, its.p)
         w_env = torch.where(prev_delta, 1.0,
                             mis_power(prev_pdf, pdf_direct_env(scene, d)))
+        hide = self.hide_emitters and bounce == 0
+        if hide:
+            w_env = torch.zeros_like(w_env)
         L = L + torch.where(escaped[:, None], throughput
                             * eval_env(scene, d) * w_env[:, None], 0.0)
 
@@ -241,6 +295,8 @@ class PathTracer:
         nee_pdf_hit = pdf_direct_area(scene, its.em_id, d, its.t, cos_surf)
         w_hit = torch.where(prev_delta, 1.0,
                             mis_power(prev_pdf, nee_pdf_hit))
+        if hide:
+            w_hit = torch.zeros_like(w_hit)
         L = L + torch.where(hit[:, None],
                             throughput * le * w_hit[:, None], 0.0)
 

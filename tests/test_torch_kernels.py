@@ -7,8 +7,9 @@ leaf-families scene, the lights-and-composites scene, the fog scenes
 (chip_smoke.py FOG_SCENES: the homogeneous medium), the proctex scene
 (the megakernels' procedural albedo) and the texenv scene (the trace and
 shade kernels under bitmap textures, normal and bump maps and an
-envmap), and the ablation probe's seven variants (csrc/ablate.cu) and
-mega_bounce at unbounded depth on the Cornell box. Every test is marked
+envmap), the ablation probe's seven variants (csrc/ablate.cu),
+mega_bounce at unbounded depth on the Cornell box, and the wrappers'
+refusal of inputs that require grad. Every test is marked
 `cuda` and skips without a card.
 The file
 imports neither jax nor the JAX package, so it also runs where only the
@@ -912,3 +913,48 @@ def test_mega_bounce_unbounded_on_card():
     assert (k[12] > 0.5).any() and (k[17] > 0).any()
     bounded = tmk.run_bounce(tables, 5, 8, st, pix, samp, 7, 9)
     assert not (bounded[12] > 0.5).any() and not (bounded[17] > 0).any()
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_grad_on_card():
+    """No kernel has a backward: under grad mode the trace kernel's,
+    run_path's and run_shade's wrappers refuse an input that requires
+    grad, and take it under torch.no_grad(); PathTracer(fused_shade="on")
+    refuses a scene whose albedos require grad, while the eager path on
+    the Cornell box (no ray depends on a parameter) runs the trace kernel
+    and gives finite gradients equal to accel="plain"'s within
+    1e-5·max|g| (the backward's scatter-adds are atomics)."""
+    dev = _card()
+    tables, _, pix, samp, st = _mega_inputs(dev)
+    scene = tables.scene
+    o, d = st[0:3].T.contiguous(), st[3:6].T.contiguous()
+    mint = ray_mint(o)
+    maxt = torch.full_like(mint, 1e30)
+    og = o.clone().requires_grad_()
+    with pytest.raises(ValueError, match="no backward"):
+        ttrace.trace(scene, og, d, mint, maxt, None, False)
+    with torch.no_grad():
+        ttrace.trace(scene, og, d, mint, maxt, None, False)
+    with pytest.raises(ValueError, match="no backward"):
+        tmk.run_path(tables, 5, 4, 4, st.clone().requires_grad_(), pix,
+                     samp, 0)
+    packed = PathTracer(max_depth=4).shade_inputs(scene, st, 0, pix.long(),
+                                                  samp, 0)
+    with pytest.raises(ValueError, match="no backward"):
+        tshade.run_shade(scene, packed.clone().requires_grad_(), pix, samp,
+                         0, 0, 5, 4)
+    grads = {}
+    for accel in ("auto", "plain"):
+        mat = scene.mat_params.clone().requires_grad_()
+        sc = scene._replace(mat_params=mat)
+        with pytest.raises(NotImplementedError, match="no backward"):
+            PathTracer(max_depth=4, fused_shade="on", accel=accel).li(
+                sc, o, d, 0, pix.long(), 0)
+        ttrace.reset_launches()
+        PathTracer(max_depth=4, accel=accel).li(
+            sc, o, d, 0, pix.long(), 0).mean().backward()
+        assert sum(ttrace.LAUNCHES.values()) == (8 if accel == "auto" else 0)
+        grads[accel] = mat.grad
+    g, gp = grads["auto"], grads["plain"]
+    assert torch.isfinite(g).all() and g.abs().max() > 0
+    assert (g - gp).abs().max() <= 1e-5 * gp.abs().max()
