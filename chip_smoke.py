@@ -171,7 +171,24 @@ Phases, each of which must pass or the script exits non-zero:
      loss.backward() through render_fn (tests/test_prb.py:61-69's rule;
      without roulette on every entry, with it on the radiance), and the
      PRB step, the naive step and a detached forward timed beside their
-     peak memory and trace launches.
+     peak memory and trace launches;
+ 25. (dist_phase) the sharded paths of mitsuba_tpu_torch/parallel, ranks
+     spawned after phase 1's builds: gloo at 2 and 4 ranks on this card,
+     render_sharded (Cornell 256², 8 bounces, 16 spp) and
+     render_persistent_sharded (64 spp) bit for bit equal to render_fn
+     and render_persistent, render_grad_sharded at 2 ranks (64², 4 spp)
+     against one process's loss.backward() (the loss bit for bit, the
+     gradients within 1e-5·max|g|), dryrun_multichip(2) against the CPU
+     forward, then NCCL with one rank a card at the card count; every
+     rank's kernel launches counted;
+ 26. (compaction_phase, run last, when no build is running)
+     PathTracer's wavefront machinery (compaction, coherence sort,
+     prefix gate) on the leaf-families scene at 16 spp and the
+     four-material scene at 64 spp, eager at 256² with the trace kernel:
+     the defaults against the compaction threshold raised (all off) and
+     gate_depth 0 (the gate alone off), one turn each, every image bit
+     for bit equal, rays/s by setting, the live lanes and the gate's
+     prefix by bounce, the trace launches.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 reports them, and {"ok": true, "device": {...}}; the line before them lists
@@ -186,7 +203,10 @@ entries for the probes' kernels (e0_ffma, e0_fmul_fadd, e1_trace_only,
 gather, and ablate_<variant> for the seven ablation variants; no path of
 the program launches them), and under "prb" (the trace kernel) phase
 24's launches over the descent and a PRB step's, a naive step's and a
-detached forward's launches, CUDA-event times and peak memory; phase 16
+detached forward's launches, CUDA-event times and peak memory, under
+"dist" (the trace kernel and mega_persistent) phase 25's launches by
+rank, and under "compaction" (the trace kernel) phase 26's launches,
+rays/s by setting and live lanes by bounce; phase 16
 prints
 {"walk": ...}, its times by variant. Exits non-zero
 without a CUDA device, and without the package beside it.
@@ -194,6 +214,7 @@ without a CUDA device, and without the package beside it.
 import atexit
 import concurrent.futures
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -410,6 +431,22 @@ PRB_SEED = 0                # the target's and every descent step's
 PRB_ROWS = (1, 2)           # the red and green walls' material rows
 PRB_START = 0.6             # their albedos and the light's radiance, scaled
 PRB_LR = {"mat_params": 20.0, "em_radiance": 100.0}   # descent step sizes
+# phase 25: the sharded paths (mitsuba_tpu_torch/parallel) on the Cornell
+# box, each case (kind, res, max_depth, spp, seed) of
+# parallel/dryrun.py::cornell_cases
+DIST_RENDER = ("render", CORNELL_RES, MAX_DEPTH, 16, 0)          # (a)
+DIST_GRAD = ("grad", 64, MAX_DEPTH, 4, 0)                        # (b)
+DIST_PERSIST = ("persistent", CORNELL_RES, MAX_DEPTH, PERSIST_SPP, 0)  # (c)
+DIST_WORLDS = (2, 4)        # gloo ranks sharing the one card
+DIST_GRAD_REL = 1e-5        # (b): max |Δg| <= DIST_GRAD_REL · max |g|
+DIST_DRYRUN = 2             # (d): dryrun_multichip's ranks (gloo)
+DIST_DRYRUN_REL = 1e-5      # (d): its loss against the CPU forward
+# phase 26: PathTracer's wavefront machinery (integrator/path.py), eager
+# at CORNELL_RES² (65,536 lanes: the gate is on) with the trace kernel,
+# SHADE_DEPTH bounces: the defaults ("on"), the gate off ("no gate") and
+# all three off ("off"), in these turns
+COMPACT_SCENES = (("leaf", LEAF_EAGER_SPP), ("four_material", 64))
+COMPACT_TURNS = ("off", "on", "no gate")
 
 @contextlib.contextmanager
 def walk_build(*defines, trace_only=False):
@@ -3531,6 +3568,271 @@ def prb_phase(card, kernels, scene, cam):
     print(f"[prb] phase {time.perf_counter() - t_start:.1f} s", flush=True)
 
 
+def dist_phase(card, kernels, scene, cam):
+    """Phase 25: the sharded paths of mitsuba_tpu_torch/parallel, ranks
+    spawned (parallel/dist.py launch) after phase 1 built the libraries,
+    over a file:// rendezvous, each rank running
+    parallel/dryrun.py::cornell_cases. (a) gloo at DIST_WORLDS ranks, every
+    rank on this card: render_sharded (DIST_RENDER) bit for bit equal to
+    the single-process render_fn image (`scene`, `cam`: phase 2's); (b) at
+    2 ranks render_grad_sharded (DIST_GRAD) against one process's
+    loss.backward(): the loss bit for bit, the gradients within
+    DIST_GRAD_REL · max |g|; (c) render_persistent_sharded (DIST_PERSIST)
+    at DIST_WORLDS ranks bit for bit equal to render_persistent, n_rays
+    too; (d) dryrun_multichip(DIST_DRYRUN) on the card (gloo), its loss
+    within DIST_DRYRUN_REL of the same forward on CPU tensors; (e) NCCL
+    with one rank a card at torch.cuda.device_count() ranks, (a) and (c)
+    again, with each rank's wall time of (c) as a first scaling reading
+    where there are two cards or more. Every rank's trace and megakernel
+    launches are counted and required; no rank may hold JAX or the JAX
+    package. Ranks that share a card give no scaling figure. Adds a
+    "dist" object to the trace kernel's and mega_persistent's entries of
+    `kernels`."""
+    from mitsuba_tpu_torch.film.film import Film
+    from mitsuba_tpu_torch.integrator.mega import (MegaPathTracer,
+                                                   render_persistent)
+    from mitsuba_tpu_torch.integrator.path import PathTracer
+    from mitsuba_tpu_torch.parallel.dist import launch
+    from mitsuba_tpu_torch.parallel.dryrun import (
+        DRYRUN_CLUSTER_SIZE, DRYRUN_DEPTH, DRYRUN_RES, cornell_cases,
+        dryrun_multichip)
+    from mitsuba_tpu_torch.render import render_fn
+    from mitsuba_tpu_torch.scene.builder import compile_scene
+    from mitsuba_tpu_torch.scene.presets import cornell_box, cornell_camera
+    t_start = time.perf_counter()
+    _, res, depth, spp, seed = DIST_RENDER
+    with torch.no_grad():
+        ref_img = render_fn(scene, cam, Film(res, res), PathTracer(
+            max_depth=depth), spp, seed, device=DEV)[0]
+    _, res_p, depth_p, spp_p, seed_p = DIST_PERSIST
+    integ = MegaPathTracer.for_scene(scene, max_depth=depth_p)
+    ref_p, ref_n = render_persistent(integ, cornell_camera(res_p, res_p),
+                                     spp_p, seed_p)
+    ref_p, ref_n = ref_p.cpu().numpy(), int(ref_n)
+    _, res_g, depth_g, spp_g, seed_g = DIST_GRAD
+    leaves = {k: getattr(scene, k).clone().requires_grad_()
+              for k in ("mat_params", "em_radiance")}
+    loss = render_fn(scene._replace(**leaves), cornell_camera(res_g, res_g),
+                     Film(res_g, res_g), PathTracer(max_depth=depth_g),
+                     spp_g, seed_g, device=DEV)[0].mean()
+    loss.backward()
+    ref_loss = loss.item()
+    ref_g = {k: v.grad.cpu().numpy() for k, v in leaves.items()}
+    ref_img = ref_img.cpu().numpy()
+    want = {"trace_closest": depth * spp, "trace_any": depth * spp}
+    dist_row = {}
+
+    def run(label, world, cases, backend):
+        t0 = time.perf_counter()
+        outs = launch(cornell_cases, world, cases, device="cuda",
+                      backend=backend, timeout=600)
+        print(f"[dist] {label}: {world} ranks, {backend}, "
+              f"{time.perf_counter() - t0:.1f} s with the spawn", flush=True)
+        for r, out in enumerate(outs):
+            check(out["imported"] == [],
+                  f"{label} rank {r} imported {out['imported']}")
+        return outs
+
+    def check_render(label, outs, i):
+        for r, out in enumerate(outs):
+            img, n = out["results"][i], out["launches"][i]
+            same = np.array_equal(img, ref_img)
+            print(f"[dist] {label} rank {r}: render_sharded {res}², {spp} "
+                  f"spp bit-equal to render_fn: {same} (max |Δ| "
+                  f"{np.abs(img - ref_img).max():.3g}), launches {n}",
+                  flush=True)
+            check(same, f"{label} rank {r}: render_sharded differs")
+            for k, v in want.items():
+                check(n[k] == v, f"{label} rank {r}: {k} {n[k]}, want {v}")
+        return [o["launches"][i] for o in outs]
+
+    def check_persistent(label, outs, i):
+        for r, out in enumerate(outs):
+            (img, n), launched = out["results"][i], out["launches"][i]
+            same = np.array_equal(img, ref_p) and int(n) == ref_n
+            print(f"[dist] {label} rank {r}: render_persistent_sharded "
+                  f"{res_p}², {spp_p} spp bit-equal to render_persistent: "
+                  f"{same}, n_rays {int(n)} ({ref_n}), mega_persistent "
+                  f"launches {launched['mega_persistent']}, wall "
+                  f"{out['wall_s'][i]:.4f} s", flush=True)
+            check(same, f"{label} rank {r}: render_persistent_sharded "
+                  "differs")
+            check(launched["mega_persistent"] == 1,
+                  f"{label} rank {r}: mega_persistent not launched once")
+        return [o["launches"][i]["mega_persistent"] for o in outs]
+
+    # (a), (b), (c): gloo, every rank on this card
+    for world in DIST_WORLDS:
+        cases = [DIST_RENDER, DIST_PERSIST] + ([DIST_GRAD] if world == 2
+                                               else [])
+        label = f"gloo x{world} (one card)"
+        outs = run(label, world, cases, "gloo")
+        dist_row[f"gloo_{world}"] = {
+            "render_launches": check_render(label, outs, 0),
+            "persistent_launches": check_persistent(label, outs, 1)}
+        if world == 2:
+            for r, out in enumerate(outs):
+                loss_r, g = out["results"][2]
+                check(float(loss_r) == ref_loss, f"{label} rank {r}: loss "
+                      f"{float(loss_r)} vs one process's {ref_loss}")
+                for k, ref in ref_g.items():
+                    err = float(np.abs(g[k] - ref).max())
+                    scale = float(np.abs(ref).max())
+                    print(f"[dist] {label} rank {r}: render_grad_sharded "
+                          f"{res_g}², {spp_g} spp, loss {float(loss_r):.8g} "
+                          f"(one process {ref_loss:.8g}), {k} max |Δg| "
+                          f"{err:.3g} of max |g| {scale:.4g}", flush=True)
+                    check(np.isfinite(g[k]).all() and scale > 0
+                          and err <= DIST_GRAD_REL * scale,
+                          f"{label} rank {r}: {k} gradients differ")
+    # (d) the dry run on the card, its loss against the CPU forward
+    loss_d, gnorm_d, _ = dryrun_multichip(DIST_DRYRUN, device="cuda",
+                                          backend="gloo")
+    cpu = compile_scene(cornell_box(), cluster_size=DRYRUN_CLUSTER_SIZE,
+                        device="cpu")
+    with torch.no_grad():
+        cpu_loss = render_fn(cpu, cornell_camera(DRYRUN_RES, DRYRUN_RES),
+                             Film(DRYRUN_RES, DRYRUN_RES),
+                             PathTracer(max_depth=DRYRUN_DEPTH), 1, 0,
+                             device="cpu")[0].mean().item()
+    print(f"[dist] dryrun_multichip({DIST_DRYRUN}) on the card: loss "
+          f"{loss_d:.8g}, CPU forward {cpu_loss:.8g}, grad_norm "
+          f"{gnorm_d:.8g}", flush=True)
+    check(abs(loss_d - cpu_loss) <= DIST_DRYRUN_REL * abs(cpu_loss),
+          "dry run loss vs the CPU forward")
+    # (e) NCCL, one rank a card
+    cards = torch.cuda.device_count()
+    label = f"nccl x{cards}"
+    outs = run(label, cards, [DIST_RENDER, DIST_PERSIST], "nccl")
+    dist_row["nccl"] = {"ranks": cards,
+                        "render_launches": check_render(label, outs, 0),
+                        "persistent_launches": check_persistent(label, outs,
+                                                                1)}
+    if cards == 1:
+        print("[dist] nccl: one card on this machine, so world 1 (no "
+              "scaling reading)", flush=True)
+    else:
+        walls = [o["wall_s"][1] for o in outs]
+        dist_row["nccl"]["persistent_wall_s"] = walls
+        print(f"[dist] nccl x{cards}: render_persistent_sharded wall s by "
+              f"rank {walls}: a first scaling reading ({card})", flush=True)
+    for entry in kernels:
+        if entry["name"] in ("trace_closest", "trace_any"):
+            entry["dist"] = {k: [n[entry["name"]] for n in v[
+                "render_launches"]] for k, v in dist_row.items()}
+        elif entry["name"] == "mega_persistent":
+            entry["dist"] = {k: v["persistent_launches"]
+                             for k, v in dist_row.items()}
+    print(f"[dist] phase 25: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+
+@contextlib.contextmanager
+def wavefront_turn(tracer, label):
+    """Phase 26's tracer for a turn: "on" the defaults, "no gate"
+    gate_depth 0, "off" with integrator/path.py's compaction threshold
+    out of reach (so no sort and no gate either)."""
+    from mitsuba_tpu_torch.integrator import path as tpath
+    if label == "no gate":
+        yield dataclasses.replace(tracer, gate_depth=0)
+        return
+    saved = tpath.COMPACT_MIN_TRIS
+    if label == "off":
+        tpath.COMPACT_MIN_TRIS = 1 << 62
+    try:
+        yield tracer
+    finally:
+        tpath.COMPACT_MIN_TRIS = saved
+
+
+def compaction_phase(card, kernels):
+    """Phase 26: PathTracer's wavefront machinery on the leaf-families
+    and four-material scenes (COMPACT_SCENES), eager at CORNELL_RES² with
+    the trace kernel, SHADE_DEPTH bounces, fused_shade off: each turn of
+    COMPACT_TURNS renders the same seed, its trace launches counted;
+    every image is bit for bit the first and every ray count equal;
+    rays/s by turn; per bounce of one 1-spp pass with the defaults, the
+    live lanes and the gate's prefix. Adds a "compaction" object to the
+    trace kernel's entries of `kernels`."""
+    from mitsuba_tpu_torch.accel import trace
+    from mitsuba_tpu_torch.film.film import Film
+    from mitsuba_tpu_torch.integrator import path as tpath
+    from mitsuba_tpu_torch.integrator.path import PathTracer
+    from mitsuba_tpu_torch.render import render_fn
+    t_start = time.perf_counter()
+    res, depth = CORNELL_RES, SHADE_DEPTH
+    film = Film(res, res, "box")
+    tracer = PathTracer(max_depth=depth)
+    rows = {}
+    for name, spp in COMPACT_SCENES:
+        scene, cam = {"leaf": leaf_scene,
+                      "four_material": four_materials}[name](res)
+        plan = tracer.wavefront(scene, res * res)
+        print(f"[compaction] {name}: {scene.n_real_tris} triangles, "
+              f"{scene.woop_clusters.shape[0]} clusters, {res * res} lanes: "
+              f"compact {plan[0]}, sort {plan[1]}, gate widths {plan[2]}",
+              flush=True)
+        check(plan[0] and plan[1] and len(plan[2]) > 1,
+              f"{name}: the machinery is not on by default")
+        # the live lanes and the gate's prefix by bounce (untimed)
+        seen, width = [], tpath.gate_width
+
+        def spy(gates, active):
+            w = width(gates, active)
+            seen.append((int((active > 0.5).sum()), w))
+            return w
+        tpath.gate_width = spy
+        try:
+            with torch.no_grad():
+                render_fn(scene, cam, film, tracer, 1, 0, device=DEV)
+        finally:
+            tpath.gate_width = width
+        for b, (live, w) in enumerate(seen):
+            print(f"[compaction] {name} bounce {b}: {live} live lanes of "
+                  f"{res * res}, prefix {w}", flush=True)
+        for label in ("on", "off"):                         # (warm-up)
+            with wavefront_turn(tracer, label) as t, torch.no_grad():
+                render_fn(scene, cam, film, t, 1, 0, device=DEV)
+        turns, ref = [], None
+        for label in COMPACT_TURNS:
+            with wavefront_turn(tracer, label) as t, torch.no_grad():
+                torch.cuda.synchronize()
+                trace.reset_launches()
+                t0 = time.perf_counter()
+                img, n = render_fn(scene, cam, film, t, spp, 0, device=DEV)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches, n = dict(trace.LAUNCHES), int(n)
+            ref = ref or (img, n)
+            same = torch.equal(img, ref[0]) and n == ref[1]
+            turns.append({"turn": label, "wall_s": wall,
+                          "rays_per_s": n / wall, "launches": launches})
+            print(f"[compaction] {name} {label}: {res}², {spp} spp, "
+                  f"{wall:.3f} s, {n} rays, {n / wall:.6g} rays/s, launches "
+                  f"{launches}, bit-equal to the first turn: {same} "
+                  f"({card})", flush=True)
+            check(same, f"{name} {label}: image or ray count differs")
+            for k, v in launches.items():
+                check(v == depth * spp, f"{name} {label}: {k} {v}, want "
+                      f"{depth * spp}")
+        mean = {label: float(np.mean([t["rays_per_s"] for t in turns
+                                      if t["turn"] == label]))
+                for label in dict.fromkeys(COMPACT_TURNS)}
+        print(f"[compaction] {name}: mean rays/s by setting {mean}, on/off "
+              f"{mean['on'] / mean['off']:.4f} ({card})", flush=True)
+        rows[name] = {"spp": spp, "live_by_bounce": [x[0] for x in seen],
+                      "prefix_by_bounce": [x[1] for x in seen],
+                      "rays_per_s": mean,
+                      "launches_on": turns[1]["launches"]}
+    for entry in kernels[:2]:
+        entry["compaction"] = {
+            name: {**{k: v for k, v in row.items() if k != "launches_on"},
+                   "launches": row["launches_on"][entry["name"]]}
+            for name, row in rows.items()}
+    print(f"[compaction] phase 26: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+
 def walk_phase(card, cases):
     """Phase 16: each build of WALK_VARIANTS in the turns of WALK_TURNS on
     the same inputs. cases["traces"]: name -> (scene, rays, any_hit), each
@@ -3905,6 +4207,9 @@ def main():
     probe_phase(card, kernels)
     ablate_phase(card, kernels, scene, cam)
     prb_phase(card, kernels, scene, cam)
+    dist_phase(card, kernels, scene, cam)
+    # ---- 26. the wavefront machinery, timed with no build running --------
+    compaction_phase(card, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -20,7 +20,9 @@ mega_persistent; on CPU tensors both run the plain versions
 normal and bump maps and envmaps stay on the eager path, as in the JAX
 package.
 
-Not ported yet: render_persistent_sharded.
+render_persistent_sharded runs render_persistent over the ranks of a
+torch.distributed job (parallel/dist.py), each rank a contiguous slice
+of the lanes.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..accel.megakernel import (N_PSTATE, MegaTables,
                                 build_mega_tables, primary_rays, run_path,
@@ -38,6 +41,11 @@ from ..scene.scene import SceneData
 from ..sensor.sensor import PerspectiveCamera
 from .path import PathTracer, initial_state, pass_bounces
 from .volpath import scene_medium
+
+# lanes a rank of render_persistent_sharded runs come in multiples of this
+# (the persistent launch's thread block, csrc/megakernel.cu kThreads; the
+# JAX package's pblock, a TPU tile, has this role there)
+SHARD_BLOCK = 128
 
 # the JAX package's megakernel limits (MEGA_FAMILIES, MEGA_EM_TYPES and
 # the VMEM triangle budget), kept so supports() refuses what it refuses
@@ -230,3 +238,32 @@ def _persistent_lanes(integ: MegaPathTracer, camera, spp: int, seed,
                          camera, state, pix_flat.contiguous(),
                          torch.zeros_like(pix_flat), seed)
     return out[18:21].T / spp, out[22:24].to(torch.int64).sum(0)
+
+
+def render_persistent_sharded(integ: MegaPathTracer, camera, spp: int,
+                              seed, mesh):
+    """render_persistent over the ranks of a torch.distributed job
+    (parallel/dist.py Mesh; port of the JAX render_persistent_sharded):
+    the lane axis padded to a multiple of SHARD_BLOCK · size, lane i
+    owning pixel i % n (the padding lanes' duplicates are cut), rank r
+    running _persistent_lanes on its contiguous slice and writing it into
+    zero buffers of every lane, which one all_reduce sums. Each lane's
+    estimate is keyed by its pixel id alone, so the image is
+    render_persistent's. Returns (image [H, W, 3], n_rays as a 0-d int64
+    tensor) on every rank."""
+    w, h = camera.width, camera.height
+    n = w * h
+    chunk = SHARD_BLOCK * mesh.size
+    n_pad = -(-n // chunk) * chunk
+    per = n_pad // mesh.size
+    lo = mesh.rank * per
+    pix = torch.arange(lo, lo + per, dtype=torch.int32,
+                       device=mesh.device) % n
+    l_mean, counts = _persistent_lanes(integ, camera, spp, seed, pix)
+    # one buffer of every lane, f64: L (f32) and the counts both exact
+    lanes = torch.zeros((n_pad, 4), dtype=torch.float64, device=mesh.device)
+    lanes[lo:lo + per, 0:3] = l_mean
+    lanes[lo:lo + per, 3] = counts
+    dist.all_reduce(lanes, group=mesh.group)
+    image = lanes[:n, 0:3].to(torch.float32).reshape(h, w, 3)
+    return image, lanes[:n, 3].sum().to(torch.int64)

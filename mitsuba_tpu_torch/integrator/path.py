@@ -1,12 +1,12 @@
 """Unidirectional path tracer with NEE + MIS + Russian roulette (port of
-mitsuba_tpu/integrator/path.py PathTracer, without lane compaction).
+mitsuba_tpu/integrator/path.py PathTracer, with its wavefront machinery).
 
 A Python loop over `bounce` carries the wavefront state, 16 rows per lane:
 position, direction, throughput, radiance, the active flag, the previous
 BSDF pdf for MIS and the RR eta scale (the JAX megakernel's layout, so the
 CUDA megakernel of accel/megakernel.py holds one bounce against this one).
-Every lane of the wavefront runs every bounce; terminated lanes ride along
-unchanged and the trace kernel skips them (`live`). Defaults match
+Terminated lanes ride along unchanged and the trace kernel skips them
+(`live`). Defaults match
 the reference: rr_depth=5, RR continue probability
 q = min(max(throughput)·η², 0.95), power-heuristic MIS, depth counts path
 vertices (camera = 1) (ref: path.cpp:120-295). max_depth <= 0 is
@@ -14,6 +14,19 @@ unbounded, as in the JAX PathTracer: no depth guard, and li_stats runs
 UNBOUNDED_BOUNCES bounces. hide_emitters zeroes the MIS weights of the
 environment and of an emitter hit at bounce 0, as the JAX PathTracer
 (path.py:239, :251): the camera sees no emitter.
+
+The wavefront machinery of the JAX PathTracer (path.py:186-221,
+:300-370), on where the trace route is the kernel's (accel="auto") and
+the scene has COMPACT_MIN_TRIS real triangles or more (`wavefront`):
+after every bounce a stable partition packs the live lanes to the front
+(one index_select of the [16, N] state, the lanes' pixel ids, sample
+indices and original positions moving with it, so every lane draws its
+own sample stream), ordered by the hit triangle's cluster and the next
+direction's octant where the coherence sort is on (`sort_rays`); from
+GATE_MIN_LANES lanes a bounce runs on the narrowest prefix N >> k
+(k <= gate_depth) that holds every live lane, and the dead tail rides
+through untouched. L goes back to the caller's lane order at the end.
+Every lane's value is the uncompacted loop's.
 
 Reverse-mode autograd runs through the whole path, with respect to
 scene.mat_params and scene.em_radiance (tests/test_torch_prb.py holds it
@@ -54,6 +67,14 @@ _MAXT = 1e30
 # bounces li_stats runs for an unbounded path (max_depth <= 0), as the JAX
 # PathTracer (mitsuba_tpu/integrator/path.py:383)
 UNBOUNDED_BOUNCES = 32
+# the JAX PathTracer's thresholds of its wavefront machinery (read at
+# call time: tests and chip_smoke.py raise COMPACT_MIN_TRIS to run the
+# plain loop, and tests lower GATE_MIN_LANES to gate a small image)
+COMPACT_MIN_TRIS = 512      # compaction: mitsuba_tpu/integrator/path.py:193
+SORT_MIN_CLUSTERS = 32      # coherence sort, sort_rays="auto": :198-200
+GATE_MIN_LANES = 1 << 16    # prefix gating: :218
+SORT_RAYS = ("on", "off", "auto")
+_DEAD_KEY = 1 << 62         # a dead lane's sort key: after every live one
 
 
 def pass_bounces(max_depth: int) -> int:
@@ -114,6 +135,10 @@ class PathTracer:
     settles to "off" otherwise; "off" (the JAX default) shades eagerly.
     families: the BSDF type codes to dispatch (None: the scene's own).
     hide_emitters: bounce 0 adds no emitted radiance (the JAX field).
+    gate_depth: the prefix gate's halvings (N ... N >> gate_depth; 0
+    runs every bounce on all N lanes); sort_rays: "on", "off" or "auto"
+    (on from SORT_MIN_CLUSTERS clusters), the coherence sort inside the
+    compaction (the JAX fields; `wavefront` says where they apply).
     specialized_for settles families, fused_shade and fixed_rays for one
     scene and marks the copy it returns `settled`; render_fn does so once
     per render, and li_stats and bounce on a tracer that is not settled
@@ -126,6 +151,8 @@ class PathTracer:
     fused_shade: str = "off"
     families: tuple | None = None
     hide_emitters: bool = False
+    gate_depth: int = 5
+    sort_rays: str = "auto"
     # set by specialized_for only
     settled: bool = dataclasses.field(default=False, init=False, repr=False)
     fixed_rays: bool = dataclasses.field(default=False, init=False,
@@ -133,6 +160,9 @@ class PathTracer:
     # the shadow rays bounce counts: attempted (the JAX PathTracer and the
     # megakernel) or, when False, unoccluded (the JAX VolPathTracer)
     count_attempted = True
+    # li_stats runs the wavefront machinery (the JAX PathTracer's loop; the
+    # JAX VolPathTracer's own loop has none)
+    compacts = True
 
     def __post_init__(self):
         if self.accel not in ("auto", "plain"):
@@ -142,6 +172,12 @@ class PathTracer:
             raise ValueError(f"fused_shade must be 'on', 'off' or 'auto', "
                              f"got {self.fused_shade!r}")
         check_kind(self.sampler)
+        if self.sort_rays not in SORT_RAYS:
+            raise ValueError(f"sort_rays must be 'on', 'off' or 'auto', "
+                             f"got {self.sort_rays!r}")
+        if not isinstance(self.gate_depth, int) or self.gate_depth < 0:
+            raise ValueError(f"gate_depth must be an int >= 0, got "
+                             f"{self.gate_depth!r}")
 
     def specialized_for(self, scene: SceneData, device=None) -> "PathTracer":
         """This tracer with `families` read from the scene, fused_shade
@@ -198,19 +234,64 @@ class PathTracer:
         together they key every random draw."""
         return self.li_stats(scene, o, d, seed, pixel_id, sample_idx)[0]
 
+    def wavefront(self, scene: SceneData, n: int):
+        """The JAX PathTracer's machinery for n lanes of this scene
+        (path.py:186-221): (compact, sort, gate widths). Compaction runs
+        where the trace route is the kernel's (accel="auto") and the scene
+        has COMPACT_MIN_TRIS real triangles or more. This differs from
+        JAX on a scene of fewer than 512 real triangles: JAX reads the
+        padded count (p0.shape[0], 512 or more for any scene compiled at
+        the default cluster size), so it compacts the Cornell box, and
+        the port does not (ROADMAP.md Queue C, the entry on
+        mitsuba_tpu/integrator/path.py:193); every lane's value is the
+        same either way. The sort runs where compacting and sort_rays is
+        "on", or "auto" with SORT_MIN_CLUSTERS table clusters or more;
+        the gate where compacting with GATE_MIN_LANES lanes or more, at
+        the widths n >> k, k = 0 ... gate_depth ([n]: no gate)."""
+        compact = (self.compacts and self.accel == "auto"
+                   and trace.real_tris(scene) >= COMPACT_MIN_TRIS)
+        sort = compact and (self.sort_rays == "on" or (
+            self.sort_rays == "auto"
+            and scene.woop_clusters.shape[0] >= SORT_MIN_CLUSTERS))
+        gates = [n]
+        if compact and n >= GATE_MIN_LANES:
+            gates = [n >> k for k in range(self.gate_depth + 1)
+                     if n >> k > 0]
+        return compact, sort, gates
+
     def li_stats(self, scene: SceneData, o, d, seed, pixel_id,
                  sample_idx=0):
         """Like li, but also returns the traced-ray count, a 0-d int64
         tensor: one per live intersection ray, one per attempted shadow
-        ray (the JAX package's count)."""
+        ray (the JAX package's count). Where `wavefront` turns compaction
+        on, the lanes move after every bounce and L comes back in the
+        caller's order; with the gate, each bounce reads the live count
+        on the host (one sync a bounce)."""
         tracer = self.specialized_for(scene, o.device)
+        n = o.shape[0]
         state = initial_state(o, d)
         n_rays = torch.zeros((), dtype=torch.int64, device=o.device)
+        compact, sort, gates = tracer.wavefront(scene, n)
+        if not compact:
+            for bounce in range(pass_bounces(self.max_depth)):
+                state, traced, shadow = tracer.bounce(
+                    scene, state, seed, pixel_id, sample_idx, bounce)
+                n_rays = n_rays + traced.sum() + shadow.sum()
+            return state[9:12].T, n_rays
+        # the lanes' pixel ids, sample indices and original positions
+        samp = torch.as_tensor(sample_idx, device=o.device).expand(n)
+        ids = torch.stack([pixel_id.to(torch.int64), samp.to(torch.int64),
+                           torch.arange(n, device=o.device)])
         for bounce in range(pass_bounces(self.max_depth)):
-            state, traced, shadow = tracer.bounce(scene, state, seed,
-                                                  pixel_id, sample_idx, bounce)
+            m = gate_width(gates, state[12])
+            new, traced, shadow, tri = tracer._bounce(
+                scene, state[:, :m], seed, ids[0, :m], ids[1, :m], bounce)
             n_rays = n_rays + traced.sum() + shadow.sum()
-        return state[9:12].T, n_rays
+            perm = torch.argsort(lane_keys(new, tri, sort), stable=True)
+            state = _splice(new.index_select(1, perm), state)
+            ids = _splice(ids[:, :m].index_select(1, perm), ids)
+        L = state[9:12].T
+        return torch.zeros_like(L).index_copy(0, ids[2], L), n_rays
 
     def bounce(self, scene: SceneData, state, seed, pixel, samp, bounce: int):
         """One bounce of the wavefront (the plain version of the megakernel
@@ -222,8 +303,13 @@ class PathTracer:
         shadow [N] bool: it attempted a shadow ray, or traced one that
         was not occluded where count_attempted is False). Lanes inactive
         on entry come out unchanged."""
+        return self._bounce(scene, state, seed, pixel, samp, bounce)[:3]
+
+    def _bounce(self, scene, state, seed, pixel, samp, bounce: int):
+        """bounce, with the closest hits' triangle ids [N] (the coherence
+        sort's key) as a fourth output."""
         if not self.settled:
-            return self.specialized_for(scene, state.device).bounce(
+            return self.specialized_for(scene, state.device)._bounce(
                 scene, state, seed, pixel, samp, bounce)
         v = self._vertex(scene, state, seed, pixel, samp, bounce)
         if self.fused_shade == "on":
@@ -242,7 +328,8 @@ class PathTracer:
         else:
             new, unoccluded = self._shade_eager(scene, v, bounce + 2)
             counted = v.shadow if self.count_attempted else unoccluded
-        return torch.where(v.active, new, state), v.active, counted
+        return (torch.where(v.active, new, state), v.active, counted,
+                v.its.tri_id)
 
     def shade_inputs(self, scene: SceneData, state, seed, pixel, samp,
                      bounce: int):
@@ -395,6 +482,40 @@ class PathTracer:
             torch.stack([alive.to(d.dtype),
                          torch.where(bs.is_delta, 1.0, bs.pdf),
                          bs.is_delta.to(d.dtype), eta_scale])]), contributes
+
+
+def gate_width(gates, active):
+    """The narrowest width of `gates` (decreasing, gates[0] = N) that
+    holds every live lane of the active row [N] (a host read), as the
+    JAX lax.switch picks it; N, without a read, where there is no gate.
+    The live lanes are a prefix: the last bounce's partition packed
+    them."""
+    if len(gates) == 1:
+        return gates[0]
+    live = int((active > 0.5).sum())
+    return min(g for g in gates if g >= live)
+
+
+def lane_keys(state, tri, sort: bool):
+    """Each lane's key [N] int64 for the stable argsort that compacts the
+    state [16, N]: 0 live, 1 dead; or (sort) the hit triangle's cluster
+    (tri [N] // TRIS_PER_CLUSTER) shifted left 3, OR the octant of the
+    next direction, and _DEAD_KEY for a dead lane (JAX path.py:306-328)."""
+    alive = state[12] > 0.5
+    if not sort:
+        return (~alive).to(torch.int64)
+    neg = (state[3:6] < 0).to(torch.int64)
+    octant = neg[0] * 4 + neg[1] * 2 + neg[2]
+    key = (tri.to(torch.int64) // trace.TRIS_PER_CLUSTER) << 3 | octant
+    return torch.where(alive, key, _DEAD_KEY)
+
+
+def _splice(head, whole):
+    """whole [K, N] with its first head.shape[1] columns replaced by
+    head (the gate's prefix; the tail rides through)."""
+    m = head.shape[1]
+    return head if m == whole.shape[1] else torch.cat([head, whole[:, m:]],
+                                                      1)
 
 
 def initial_state(o, d):

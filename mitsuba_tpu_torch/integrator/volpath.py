@@ -50,6 +50,8 @@ class VolPathTracer(PathTracer):
     medium: tuple | None = dataclasses.field(default=None, init=False,
                                              repr=False)
     count_attempted = False
+    # the JAX VolPathTracer's loop (volpath.py:47) has no compaction
+    compacts = False
 
     def __post_init__(self):
         super().__post_init__()
