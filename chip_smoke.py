@@ -188,7 +188,18 @@ Phases, each of which must pass or the script exits non-zero:
      the defaults against the compaction threshold raised (all off) and
      gate_depth 0 (the gate alone off), one turn each, every image bit
      for bit equal, rays/s by setting, the live lanes and the gate's
-     prefix by bounce, the trace launches.
+     prefix by bounce, the trace launches;
+ 27. (cli_phase) the command-line renderer (mitsuba_tpu_torch/cli.py),
+     in-process through cli.run on each of the five scenes/*.xml at its
+     own film size and spp (cornell.xml at -s 64), each writing an EXR:
+     the route each takes (megakernel or eager, with the refusal reason),
+     its trace and mega_persistent launches, rays, wall seconds and
+     rays/s; every EXR read back through io/image.py's read_exr equal to
+     the image bit for bit (and a half EXR to float16 rounding); each
+     megakernel-route scene at 16 spp through the CLI against render_fn
+     of the same loaded scene (the trace kernel) under the image rule;
+     then one `python3 -m mitsuba_tpu_torch scenes/checker.xml` process
+     with no --device, whose log must name the megakernel route on cuda.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 reports them, and {"ok": true, "device": {...}}; the line before them lists
@@ -205,8 +216,9 @@ the program launches them), and under "prb" (the trace kernel) phase
 24's launches over the descent and a PRB step's, a naive step's and a
 detached forward's launches, CUDA-event times and peak memory, under
 "dist" (the trace kernel and mega_persistent) phase 25's launches by
-rank, and under "compaction" (the trace kernel) phase 26's launches,
-rays/s by setting and live lanes by bounce; phase 16
+rank, under "compaction" (the trace kernel) phase 26's launches,
+rays/s by setting and live lanes by bounce, and under "cli" (the trace
+kernel and mega_persistent) phase 27's launches by scene; phase 16
 prints
 {"walk": ...}, its times by variant. Exits non-zero
 without a CUDA device, and without the package beside it.
@@ -447,6 +459,12 @@ DIST_DRYRUN_REL = 1e-5      # (d): its loss against the CPU forward
 # all three off ("off"), in these turns
 COMPACT_SCENES = (("leaf", LEAF_EAGER_SPP), ("four_material", 64))
 COMPACT_TURNS = ("off", "on", "no gate")
+# phase 27: the command-line renderer on the repo's scene files, each at its
+# own film size and spp (cornell.xml at CLI_CORNELL_SPP, the README's -s)
+CLI_SCENES = ("cornell.xml", "materials.xml", "checker.xml", "dof.xml",
+              "volumetric.xml")
+CLI_CORNELL_SPP = 64
+CLI_CHECK_SPP = 16          # megakernel route against render_fn
 
 @contextlib.contextmanager
 def walk_build(*defines, trace_only=False):
@@ -3833,6 +3851,123 @@ def compaction_phase(card, kernels):
           flush=True)
 
 
+def cli_phase(card, kernels):
+    """Phase 27: the command-line renderer, cli.run in-process on each of
+    CLI_SCENES (the launches of each run counted from 0), every EXR read
+    back, the megakernel-route scenes at CLI_CHECK_SPP against render_fn
+    of the same LoadedScene, and one `python3 -m mitsuba_tpu_torch`
+    process with no --device. Adds a "cli" object (launches by scene) to
+    the trace kernel's and mega_persistent's entries of `kernels`."""
+    import tempfile
+
+    from mitsuba_tpu_torch import cli
+    from mitsuba_tpu_torch.accel import megakernel as mk
+    from mitsuba_tpu_torch.accel import trace
+    from mitsuba_tpu_torch.io.image import read_exr, write_exr
+    from mitsuba_tpu_torch.render import render_fn
+    from mitsuba_tpu_torch.scene.xml import load_xml
+    t_start = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    scene_path = lambda name: os.path.join(root, "scenes", name)
+    names = ("trace_closest", "trace_any", "mega_persistent")
+    launches, results = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) each scene file as written; (b) its EXR read back
+        for name in CLI_SCENES:
+            out = os.path.join(tmp, name.replace(".xml", ".exr"))
+            extra = ["-s", str(CLI_CORNELL_SPP)] \
+                if name == "cornell.xml" else []
+            torch.cuda.synchronize()
+            trace.reset_launches()
+            mk.reset_launches()
+            t0 = time.perf_counter()
+            (res,) = cli.run([scene_path(name), "-o", out, "-q", *extra])
+            wall = time.perf_counter() - t0
+            counts = {**trace.LAUNCHES, **mk.LAUNCHES}
+            launches[name] = {k: counts[k] for k in names}
+            results[name] = res
+            h, w = res.image.shape[:2]
+            print(f"[cli] {name}: {w}x{h}, {res.spp} spp, route "
+                  f"{res.route}{' (megakernel refused: ' + res.refused + ')' if res.refused else ''}"
+                  f", launches {launches[name]}, {res.n_rays} rays, render "
+                  f"{res.render_s:.3f} s, wall {wall:.3f} s (load, compile, "
+                  f"render, write), {res.n_rays / res.render_s:.6g} rays/s "
+                  f"({card})", flush=True)
+            check(res.device == "cuda", f"{name}: rendered on {res.device}")
+            check(np.isfinite(res.image).all(), f"{name}: NaN/Inf")
+            check(0.0 < float(res.image.mean()) < 10.0,
+                  f"{name}: image mean {res.image.mean()}")
+            if res.route == "megakernel":
+                check(launches[name]["mega_persistent"] == 1
+                      and launches[name]["trace_closest"] == 0,
+                      f"{name}: megakernel route launches {launches[name]}")
+            else:
+                check(launches[name]["trace_closest"] > 0
+                      and launches[name]["mega_persistent"] == 0,
+                      f"{name}: eager route launches {launches[name]}")
+            back = read_exr(out)
+            want = res.image if res.film.component_format != "float16" \
+                else res.image.astype(np.float16).astype(np.float32)
+            check(back.shape == want.shape and np.array_equal(back, want),
+                  f"{name}: the EXR does not read back as the image")
+        routes = {r.route for r in results.values()}
+        check(routes == {"megakernel", "eager"},
+              f"phase 27 took the routes {routes}, want both")
+        half = os.path.join(tmp, "half.exr")
+        img = results[CLI_SCENES[-1]].image
+        write_exr(half, img, compression="zips", pixel_type="half")
+        check(np.array_equal(read_exr(half),
+                             img.astype(np.float16).astype(np.float32)),
+              "half EXR does not read back to float16 rounding")
+        print(f"[cli] every EXR reads back equal to its image (float32 bit "
+              f"for bit, half to float16 rounding)", flush=True)
+
+        # (c) the megakernel route against the eager path, same streams
+        for name, res in results.items():
+            if res.route != "megakernel":
+                continue
+            (r16,) = cli.run([scene_path(name), "-o",
+                              os.path.join(tmp, "check.exr"), "-q", "-s",
+                              str(CLI_CHECK_SPP)])
+            check(r16.route == "megakernel", f"{name}: route {r16.route}")
+            loaded = load_xml(scene_path(name))
+            scene = loaded.compile(device=DEV)
+            trace.reset_launches()
+            eager, _ = render_fn(scene, loaded.camera, loaded.film,
+                                 loaded.make_integrator(), CLI_CHECK_SPP, 0,
+                                 device=DEV)
+            check(trace.LAUNCHES["trace_closest"] > 0,
+                  f"{name}: the eager render launched no trace kernel")
+            image_rule(torch.as_tensor(r16.image), eager.cpu(),
+                       f"cli {name} megakernel vs eager, {CLI_CHECK_SPP} "
+                       "spp")
+
+        # (d) the command a user types, no --device
+        sub = os.path.join(tmp, "sub.exr")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mitsuba_tpu_torch",
+             os.path.join("scenes", "checker.xml"), "-o", sub, "-q"],
+            cwd=root, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        route = [line for line in proc.stderr.splitlines()
+                 if "Route:" in line]
+        print(f"[cli] python3 -m mitsuba_tpu_torch scenes/checker.xml: exit "
+              f"{proc.returncode}, {wall:.1f} s, {route}", flush=True)
+        check(proc.returncode == 0, f"the CLI process failed:\n"
+                                    f"{proc.stderr[-4000:]}")
+        check(os.path.exists(sub), "the CLI process wrote no image")
+        check(len(route) == 1 and "Route: megakernel" in route[0]
+              and route[0].endswith("on cuda"),
+              f"the CLI process took the route {route}")
+    for entry in kernels:
+        if entry["name"] in names:
+            entry["cli"] = {name: counts[entry["name"]]
+                            for name, counts in launches.items()}
+    print(f"[cli] phase 27: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+
 def walk_phase(card, cases):
     """Phase 16: each build of WALK_VARIANTS in the turns of WALK_TURNS on
     the same inputs. cases["traces"]: name -> (scene, rays, any_hit), each
@@ -4210,6 +4345,8 @@ def main():
     dist_phase(card, kernels, scene, cam)
     # ---- 26. the wavefront machinery, timed with no build running --------
     compaction_phase(card, kernels)
+    # ---- 27. the command-line renderer on the repo's scene files ---------
+    cli_phase(card, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

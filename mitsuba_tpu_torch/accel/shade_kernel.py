@@ -76,11 +76,12 @@ _COMPOSITES = {MAT_MIXTURE: "mixture", MAT_COATING: "coating",
                MAT_ROUGH_COATING: "rough coating"}
 
 
-def supports(scene: SceneData) -> tuple[bool, str]:
-    """Can the fused tail shade this scene? (ok, reason). The JAX gate
-    (shade_kernel.py supports: a cluster table, families the kernel
-    knows; its independent-sampler condition always holds, as the port's
-    PathTracer has no other sampler), narrowed where the JAX kernel
+def supports(scene: SceneData, sampler: str = "independent"
+             ) -> tuple[bool, str]:
+    """Can the fused tail shade this scene for a tracer drawing from
+    `sampler`? (ok, reason). The JAX gate (shade_kernel.py supports: the
+    independent sampler, which is the stream the kernel draws, a cluster
+    table, families the kernel knows), narrowed where the JAX kernel
     shades wrong: rough plastic reads transmittance rows past the K_IN
     input (RTROW = 34 onward, not packed) and the composites have no
     branch in its dispatch, so both are turned away. The kernel's
@@ -92,6 +93,9 @@ def supports(scene: SceneData) -> tuple[bool, str]:
     (column 9) alone, which makes the eager GGX anisotropic lane by lane
     (it reads α_v from column 10); so a rough conductor or dielectric
     with a roughness texture is turned away as well."""
+    if sampler != "independent":
+        return False, (f"sampler {sampler!r}: the kernel draws the "
+                       "independent stream")
     if scene.woop_clusters is None or scene.cluster_aabb is None:
         return False, "no cluster table"
     fams = set(scene.mat_type.tolist())

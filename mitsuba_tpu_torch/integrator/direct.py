@@ -19,7 +19,6 @@ from ..bsdf.bsdf import (eval_bsdf_ex, pdf_bsdf_ex, perturb_shading_frame,
 from ..core.math import SHADOW_EPSILON, Frame, dot
 from ..emitter.emitter import (eval_area, eval_env, pdf_direct_area,
                                pdf_direct_env, sample_direct)
-from ..sampler.sampler import draw_1d, draw_2d
 from ..scene.scene import SceneData
 from .common import (DIM_BSDF_U1, DIM_BSDF_U2, DIM_NEE_POS, DIM_NEE_SEL,
                      bounce_dim, offset_ray_origin, ray_mint)
@@ -59,10 +58,10 @@ class DirectIntegrator(PathTracer):
         ne, nb = self.emitter_samples, self.bsdf_samples
         frac_lum = ne / (ne + nb)
         frac_bsdf = nb / (ne + nb)
-        d1 = lambda k, off: draw_1d(seed, pixel_id, sample_idx,
-                                    bounce_dim(k, off))
-        d2 = lambda k, off: draw_2d(seed, pixel_id, sample_idx,
-                                    bounce_dim(k, off))
+        d1 = lambda k, off: self._d1(seed, pixel_id, sample_idx,
+                                     bounce_dim(k, off))
+        d2 = lambda k, off: self._d2(seed, pixel_id, sample_idx,
+                                     bounce_dim(k, off))
 
         everyone = torch.ones_like(o[:, 0], dtype=torch.bool)
         its = self._intersect(scene, o, d, ray_mint(o), everyone)

@@ -68,7 +68,8 @@ class MegaPathTracer(PathTracer):
     class's block, pblock and sublanes (TPU tile sizes) are dropped: a
     CUDA thread runs one lane, and the launch covers every lane. The
     megakernels have no hide_emitters (nor have the JAX ones): the
-    field must stay False."""
+    field must stay False; nor have they another sampler than the
+    independent one."""
     tables: MegaTables | None = None
 
     def __post_init__(self):
@@ -76,6 +77,10 @@ class MegaPathTracer(PathTracer):
         if self.hide_emitters:
             raise ValueError(f"{type(self).__name__}: the megakernels have "
                              "no hide_emitters")
+        if self.sampler != "independent" and self.spp > 0:
+            raise ValueError(f"{type(self).__name__}: the megakernels draw "
+                             f"the independent stream, not "
+                             f"{self.sampler!r}")
 
     @staticmethod
     def supports(scene: SceneData, camera=None, film=None,

@@ -134,6 +134,9 @@ class PathTracer:
     the scene is supported and no parameter gradient is recorded, and
     settles to "off" otherwise; "off" (the JAX default) shades eagerly.
     families: the BSDF type codes to dispatch (None: the scene's own).
+    sampler, spp: the sample generator of every draw (sampler/
+    sampler.py), as the JAX fields; render_fn draws the pixel jitter
+    with it too.
     hide_emitters: bounce 0 adds no emitted radiance (the JAX field).
     gate_depth: the prefix gate's halvings (N ... N >> gate_depth; 0
     runs every bounce on all N lanes); sort_rays: "on", "off" or "auto"
@@ -147,7 +150,9 @@ class PathTracer:
                                 # unbounded
     rr_depth: int = 5
     accel: str = "auto"
-    sampler: str = "independent"
+    sampler: str = "independent"    # sampler/sampler.py kind
+    spp: int = 0                    # its strata count (stratified, ld,
+                                    # hammersley); 0 draws independent
     fused_shade: str = "off"
     families: tuple | None = None
     hide_emitters: bool = False
@@ -197,7 +202,7 @@ class PathTracer:
         if fused != "off":
             from ..accel.shade_kernel import supports
             dev = scene.device if device is None else torch.device(device)
-            ok, reason = supports(scene)
+            ok, reason = supports(scene, self.sampler)
             if fused == "on" and not ok:
                 raise NotImplementedError(f"fused_shade='on': {reason}")
             fused = "on" if ok and (fused == "on" or (
@@ -216,6 +221,14 @@ class PathTracer:
                 "fused_shade='on': the shade kernel has no backward, and "
                 "scene.mat_params or scene.em_radiance requires grad; use "
                 "fused_shade='off' or 'auto', or run under torch.no_grad()")
+
+    def _d1(self, seed, pixel, samp, dim):
+        """One draw per lane from the tracer's sampler."""
+        return draw_1d(self.sampler, seed, pixel, samp, self.spp, dim)
+
+    def _d2(self, seed, pixel, samp, dim):
+        """Two draws per lane ([N, 2]) from the tracer's sampler."""
+        return draw_2d(self.sampler, seed, pixel, samp, self.spp, dim)
 
     def _intersect(self, scene, o, d, mint, live):
         maxt = torch.full_like(mint, _MAXT)
@@ -353,8 +366,8 @@ class PathTracer:
         L = state[9:12].T.contiguous()
         active = state[12] > 0.5
         prev_pdf, prev_delta = state[13], state[14] > 0.5
-        d1 = lambda off: draw_1d(seed, pixel, samp, bounce_dim(bounce, off))
-        d2 = lambda off: draw_2d(seed, pixel, samp, bounce_dim(bounce, off))
+        d1 = lambda off: self._d1(seed, pixel, samp, bounce_dim(bounce, off))
+        d2 = lambda off: self._d2(seed, pixel, samp, bounce_dim(bounce, off))
 
         its = self._intersect(scene, o, d, ray_mint(o), active)
         throughput, scatter, p_scatter = self._medium_event(

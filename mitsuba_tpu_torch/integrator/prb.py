@@ -40,7 +40,6 @@ from ..bsdf.bsdf import (COMPOSITE_FAMILIES, conductor_sample, eval_bsdf,
 from ..core.math import SHADOW_EPSILON, Frame, dot
 from ..emitter.emitter import (eval_area, eval_env, pdf_direct_area,
                                pdf_direct_env, sample_direct)
-from ..sampler.sampler import draw_1d, draw_2d
 from ..scene.scene import MAT_CONDUCTOR, SceneData
 from .common import (DIM_BSDF_U1, DIM_BSDF_U2, DIM_NEE_POS, DIM_NEE_SEL,
                      DIM_RR, bounce_dim, mis_power, offset_ray_origin,
@@ -100,10 +99,10 @@ class PRBPathTracer(PathTracer):
         active = prev_delta = ones > 0
         eta_scale = prev_pdf = ones
         for bounce in range(pass_bounces(self.max_depth)):
-            d1 = lambda off: draw_1d(seed, pixel_id, sample_idx,
-                                     bounce_dim(bounce, off))
-            d2 = lambda off: draw_2d(seed, pixel_id, sample_idx,
-                                     bounce_dim(bounce, off))
+            d1 = lambda off: tracer._d1(seed, pixel_id, sample_idx,
+                                        bounce_dim(bounce, off))
+            d2 = lambda off: tracer._d2(seed, pixel_id, sample_idx,
+                                        bounce_dim(bounce, off))
             # ---- the bounce's detached decisions ----------------------
             with torch.no_grad():
                 its = tracer._intersect(sc_det, o, d, ray_mint(o), active)

@@ -30,7 +30,7 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 from ..film.film import Film
-from ..render import sample_camera
+from ..render import integrator_sampler, sample_camera
 from ..scene.scene import SceneData
 
 # the backend for a rank's device type, where the caller names none
@@ -165,7 +165,8 @@ def _accumulate(scene: SceneData, camera, film: Film, integrator, spp: int,
         integrator = specialize(scene)
     accum = film.new_accumulator(mesh.device)
     for s in range(spp):
-        pos, o, d = sample_camera(camera, film.width, seed, px, s)
+        pos, o, d = sample_camera(camera, film.width, seed, px, s,
+                                  *integrator_sampler(integrator))
         radiance = integrator.li(scene, o, d, seed, px, s)
         film.splat(accum, torch.where(valid[:, None], pos, -100.0),
                    torch.where(valid[:, None], radiance, 0.0))

@@ -1,6 +1,8 @@
 """Host-side shape -> triangle mesh generators (copy of the Mesh,
-rectangle, cube and sphere parts of mitsuba_tpu/scene/shapes.py). Every
-shape is compiled to triangles at scene-build time."""
+rectangle, cube, sphere, disk, cylinder and heightfield parts of
+mitsuba_tpu/scene/shapes.py). Every shape is compiled to triangles at
+scene-build time. The JAX module's hair, shape groups and instances,
+deformable meshes and shell-mapped heightfields are not ported."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -15,6 +17,9 @@ class Mesh:
     faces: np.ndarray               # [F, 3] int64
     normals: np.ndarray | None = None   # [V, 3] shading normals
     uvs: np.ndarray | None = None       # [V, 2]
+    colors: np.ndarray | None = None    # [V, 3] linear vertex colors
+    #   (consumed by texture/geomtex.py bake_vertex_colors — the
+    #   vertexcolors texture analog; ref: src/textures/vertexcolors.cpp)
 
 
 def rectangle() -> Mesh:
@@ -77,3 +82,69 @@ def sphere(subdiv_theta: int = 32, subdiv_phi: int = 64) -> Mesh:
             if i < subdiv_theta - 1:
                 faces.append([b, c, d])
     return Mesh(v, np.array(faces), v.copy(), uv)
+
+
+def disk(subdiv: int = 64) -> Mesh:
+    """Unit disk in the xy-plane, normal +z (ref: src/shapes/disk.cpp)."""
+    ang = np.linspace(0, 2 * np.pi, subdiv, endpoint=False)
+    rim = np.stack([np.cos(ang), np.sin(ang), np.zeros(subdiv)], -1)
+    v = np.concatenate([[[0.0, 0.0, 0.0]], rim])
+    f = [[0, 1 + i, 1 + (i + 1) % subdiv] for i in range(subdiv)]
+    n = np.tile([0.0, 0.0, 1.0], (subdiv + 1, 1))
+    uv = 0.5 * (v[:, :2] + 1.0)
+    return Mesh(v, np.array(f), n, uv)
+
+
+def cylinder(subdiv: int = 64) -> Mesh:
+    """Open cylinder along z from 0 to 1, radius 1
+    (ref: src/shapes/cylinder.cpp)."""
+    ang = np.linspace(0, 2 * np.pi, subdiv, endpoint=False)
+    ring = np.stack([np.cos(ang), np.sin(ang)], -1)
+    bot = np.concatenate([ring, np.zeros((subdiv, 1))], -1)
+    top = np.concatenate([ring, np.ones((subdiv, 1))], -1)
+    v = np.concatenate([bot, top])
+    n = np.concatenate([np.concatenate([ring, np.zeros((subdiv, 1))], -1)] * 2)
+    uv = np.concatenate(
+        [np.stack([ang / (2 * np.pi), np.zeros(subdiv)], -1),
+         np.stack([ang / (2 * np.pi), np.ones(subdiv)], -1)])
+    f = []
+    for i in range(subdiv):
+        j = (i + 1) % subdiv
+        f.append([i, j, subdiv + i])
+        f.append([j, subdiv + j, subdiv + i])
+    return Mesh(v, np.array(f), n, uv)
+
+
+def heightfield(heights: np.ndarray, flip_normals: bool = False) -> Mesh:
+    """Regular-grid heightfield spanning [-1,1]² in xy with z = h(x, y)
+    (ref: src/shapes/heightfield.cpp — winmad's 2D-SAH-quadtree shape;
+    here compiled to triangles for the wavefront intersector like every
+    other shape; the reference's lod/tiled/composite variants map to
+    building this mesh from a chosen mip level of the height texture).
+
+    heights: [H, W] float array of surface heights.
+    """
+    hts = np.asarray(heights, np.float64)
+    hh, ww = hts.shape
+    xs = np.linspace(-1.0, 1.0, ww)
+    ys = np.linspace(-1.0, 1.0, hh)
+    xg, yg = np.meshgrid(xs, ys, indexing="xy")
+    v = np.stack([xg, yg, hts], axis=-1).reshape(-1, 3)
+    uv = np.stack([(xg + 1) / 2, (yg + 1) / 2], -1).reshape(-1, 2)
+
+    # central-difference shading normals (ref heightfield.cpp derivatives)
+    dx = np.gradient(hts, xs, axis=1)
+    dy = np.gradient(hts, ys, axis=0)
+    n = np.stack([-dx, -dy, np.ones_like(hts)], axis=-1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    if flip_normals:
+        n = -n
+    n = n.reshape(-1, 3)
+
+    idx = np.arange(hh * ww).reshape(hh, ww)
+    a = idx[:-1, :-1].ravel()
+    b = idx[:-1, 1:].ravel()
+    c = idx[1:, :-1].ravel()
+    d = idx[1:, 1:].ravel()
+    f = np.concatenate([np.stack([a, b, d], -1), np.stack([d, c, a], -1)])
+    return Mesh(v, f, n, uv)

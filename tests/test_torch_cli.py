@@ -1,0 +1,162 @@
+"""The port's command-line renderer (cli.py) on the CPU: the Cornell scene
+file (ldsampler, tent filter) through `cli` against the JAX package's
+render of the same file, and the flags -x, -r, -o .pfm and -p (gloo ranks,
+bit-equal to one process)."""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from mitsuba_tpu_torch import cli
+from mitsuba_tpu_torch.io import image as timage
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CORNELL = os.path.join(ROOT, "scenes", "cornell.xml")
+
+torch.set_num_threads(2)
+
+# a small box-filter scene with the independent sampler: a floor, a back
+# wall, a cube and an area light
+_SMALL = """<scene version="0.5.0">
+  <integrator type="path"><integer name="maxDepth" value="4"/></integrator>
+  <sensor type="perspective">
+    <float name="fov" value="45"/>
+    <transform name="toWorld">
+      <lookat origin="0, 1, 3" target="0, 0.3, 0" up="0, 1, 0"/>
+    </transform>
+    <film type="hdrfilm">
+      <integer name="width" value="16"/><integer name="height" value="12"/>
+    </film>
+    <sampler type="independent"><integer name="sampleCount" value="16"/></sampler>
+  </sensor>
+  <bsdf type="diffuse" id="w"><rgb name="reflectance" value="0.7"/></bsdf>
+  <shape type="rectangle">
+    <transform name="toWorld"><scale value="2"/><rotate x="1" angle="-90"/></transform>
+    <ref id="w"/>
+  </shape>
+  <shape type="rectangle">
+    <transform name="toWorld"><scale value="2"/><translate z="-1"/></transform>
+    <ref id="w"/>
+  </shape>
+  <shape type="cube">
+    <transform name="toWorld"><scale value="0.3"/><translate y="0.3"/></transform>
+    <bsdf type="roughconductor"><float name="alpha" value="0.2"/></bsdf>
+  </shape>
+  <shape type="rectangle">
+    <transform name="toWorld"><scale value="0.5"/><rotate x="1" angle="90"/>
+      <translate y="2"/></transform>
+    <ref id="w"/>
+    <emitter type="area"><rgb name="radiance" value="8"/></emitter>
+  </shape>
+</scene>
+"""
+
+
+@pytest.fixture
+def small(tmp_path):
+    p = tmp_path / "small.xml"
+    p.write_text(_SMALL)
+    return str(p)
+
+
+def test_cornell_cli_matches_jax_render(tmp_path):
+    """`cli` on scenes/cornell.xml at -s 2 -d 3 on the CPU, read back from
+    its EXR, against the JAX render of the JAX-loaded file at the same
+    overrides (ldsampler, tent filter): the rules of
+    tests/test_render.py:44-48. The file carries the annotations."""
+    from mitsuba_tpu.render import render as jrender
+    from mitsuba_tpu.scene.xml import load_xml as jload
+    out = str(tmp_path / "c.exr")
+    (res,) = cli.run([CORNELL, "-o", out, "-s", "2", "-d", "3",
+                      "--device", "cpu", "-q"])
+    img = timage.read_exr(out)
+    assert np.array_equal(img, res.image)
+    assert (res.route, res.device, res.spp) == ("eager", "cpu", 2)
+    assert res.n_rays > 0
+    ann = timage.read_exr_annotations(out)
+    assert ann["spp"] == 2 and ann["generatedBy"] == "mitsuba_tpu_torch"
+
+    j = jload(CORNELL)
+    j.integrator_config["max_depth"] = 3
+    scene = j.compile()
+    integ = j.make_integrator().specialized_for(scene)
+    integ = dataclasses.replace(integ, sampler=j.sampler, spp=2)
+    assert (integ.sampler, j.film.filter_name) == ("ldsampler", "tent")
+    ref = np.asarray(jrender(scene, j.camera, j.film, integ, 2, 0))
+    print("max abs difference", np.abs(img - ref).max())
+    rel = np.abs(img - ref) / np.maximum(ref, 1e-3)
+    assert (rel > 5e-2).mean() < 1e-2, (rel > 5e-2).mean()
+    assert np.abs(img.mean() - ref.mean()) / ref.mean() < 5e-3
+
+
+def test_skip_existing_and_pfm(small, tmp_path):
+    """-o .pfm writes a PFM equal to the image; -x skips a scene whose
+    output exists, leaving the file as it was."""
+    out = str(tmp_path / "s.pfm")
+    (res,) = cli.run([small, "-o", out, "-s", "2", "--device", "cpu", "-q"])
+    assert np.array_equal(timage.read_pfm(out), res.image)
+    before = os.stat(out).st_mtime_ns
+    assert cli.run([small, "-o", out, "-x", "--device", "cpu", "-q"]) == []
+    assert os.stat(out).st_mtime_ns == before
+    assert cli.main([small, "-o", out, "-x", "--device", "cpu", "-q"]) == 0
+
+
+def test_refresh_writes_partials(small, tmp_path, monkeypatch):
+    """-r renders in passes of REFRESH_CHUNK spp, flushing the running
+    mean after each pass but the last; the final image is the passes'
+    mean, each pass render_fn at seed + its first sample."""
+    from mitsuba_tpu_torch.render import render_fn
+    from mitsuba_tpu_torch.scene.xml import load_xml
+    written = []
+    real = timage.write_image
+    monkeypatch.setattr(timage, "write_image",
+                        lambda p, im: (written.append(np.array(im)),
+                                       real(p, im)))
+    out = str(tmp_path / "r.pfm")
+    (res,) = cli.run([small, "-o", out, "-s", "16", "-r", "1e-9",
+                      "--device", "cpu", "-q"])
+    assert len(written) == 2              # one partial, then the final
+    loaded = load_xml(small)
+    scene = loaded.compile(device="cpu")
+    integ = loaded.make_integrator()
+    passes = [render_fn(scene, loaded.camera, loaded.film, integ, 8, s,
+                        device="cpu")[0] for s in (0, 8)]
+    np.testing.assert_array_equal(written[0], passes[0].numpy())
+    want = ((passes[0] * 8 + passes[1] * 8) / 16).numpy()
+    np.testing.assert_array_equal(res.image, want)
+    np.testing.assert_array_equal(timage.read_pfm(out), want)
+
+
+def test_two_ranks_equal_one(small, tmp_path):
+    """-p 2 (two spawned gloo ranks on the CPU), run in a process of its
+    own that has imported neither jax nor mitsuba_tpu when it ends,
+    writes the image -p 1 writes, bit for bit (box filter: every pixel's
+    samples come from one rank)."""
+    one, two = str(tmp_path / "one.exr"), str(tmp_path / "two.exr")
+    (r1,) = cli.run([small, "-o", one, "-s", "3", "-p", "1",
+                     "--device", "cpu", "-q"])
+    argv = [small, "-o", two, "-s", "3", "-p", "2", "--device", "cpu", "-q"]
+    code = ("import sys\n"
+            "from mitsuba_tpu_torch import cli\n"
+            f"(res,) = cli.run({argv!r})\n"
+            "assert res.image.shape == (12, 16, 3), res.image.shape\n"
+            "assert (res.route, res.n_rays) == ('eager', None)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'mitsuba_tpu')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=300)
+    assert np.array_equal(timage.read_exr(one), timage.read_exr(two))
+    assert np.array_equal(timage.read_exr(one), r1.image)
+
+
+def test_cuda_default_without_card(small, monkeypatch):
+    """The CLI runs on cuda unless given --device cpu, and raises without
+    a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main([small, "-s", "1", "-q"])

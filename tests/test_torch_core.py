@@ -63,15 +63,19 @@ def test_independent_draws(fn):
     pix = np.arange(4096, dtype=np.uint32) * 977
     ref = np.asarray(getattr(jsampler, fn)(
         "independent", 11, jnp.asarray(pix), 3, 0, 12))
-    out = getattr(tsampler, fn)(11, torch.as_tensor(pix.astype(np.int64)),
-                                3, 12).numpy()
+    out = getattr(tsampler, fn)("independent", 11,
+                                torch.as_tensor(pix.astype(np.int64)),
+                                3, 0, 12).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-6, atol=0)
 
 
 def test_unported_sampler_raises():
+    """Every sampler of the JAX package is ported: only a name it does
+    not know raises."""
     from mitsuba_tpu_torch.integrator.path import PathTracer
-    with pytest.raises(NotImplementedError, match="stratified"):
-        PathTracer(sampler="stratified")
+    with pytest.raises(ValueError, match="stratified2"):
+        PathTracer(sampler="stratified2")
+    PathTracer(sampler="stratified")
     tsampler.check_kind("independent")
 
 

@@ -8,8 +8,9 @@ leaf-families scene, the lights-and-composites scene, the fog scenes
 (the megakernels' procedural albedo) and the texenv scene (the trace and
 shade kernels under bitmap textures, normal and bump maps and an
 envmap), the ablation probe's seven variants (csrc/ablate.cu),
-mega_bounce at unbounded depth on the Cornell box, and the wrappers'
-refusal of inputs that require grad. Every test is marked
+mega_bounce at unbounded depth on the Cornell box, the wrappers'
+refusal of inputs that require grad, and the command-line renderer's
+megakernel route on scenes/checker.xml. Every test is marked
 `cuda` and skips without a card.
 The file
 imports neither jax nor the JAX package, so it also runs where only the
@@ -958,3 +959,27 @@ def test_wrappers_refuse_grad_on_card():
     g, gp = grads["auto"], grads["plain"]
     assert torch.isfinite(g).all() and g.abs().max() > 0
     assert (g - gp).abs().max() <= 1e-5 * gp.abs().max()
+
+
+@pytest.mark.cuda
+def test_cli_megakernel_route_on_card(tmp_path):
+    """The command-line renderer on scenes/checker.xml at 16 spp, with no
+    --device: it takes the megakernel route on the card (one
+    mega_persistent launch, no trace launch), and its EXR reads back
+    equal to the image it rendered."""
+    import os
+
+    from mitsuba_tpu_torch import cli
+    from mitsuba_tpu_torch.io.image import read_exr
+    _card()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = str(tmp_path / "checker.exr")
+    ttrace.reset_launches()
+    tmk.reset_launches()
+    (res,) = cli.run([os.path.join(root, "scenes", "checker.xml"), "-o",
+                      out, "-s", "16", "-q"])
+    assert (res.route, res.device, res.refused) == ("megakernel", "cuda", "")
+    assert tmk.LAUNCHES["mega_persistent"] == 1
+    assert sum(ttrace.LAUNCHES.values()) == 0
+    assert np.isfinite(res.image).all() and res.n_rays > 0
+    assert np.array_equal(read_exr(out), res.image)

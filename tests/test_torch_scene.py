@@ -191,8 +191,8 @@ def test_compile_scene_rejects_unported():
     d.medium = Medium(density_grid=np.ones((2, 2, 2)))
     with pytest.raises(NotImplementedError, match="heterogeneous"):
         tcompile(d, device="cpu")
-    with pytest.raises(NotImplementedError, match="tent"):
-        TFilm(8, 8, "tent")
+    with pytest.raises(ValueError, match="sinc"):
+        TFilm(8, 8, "sinc")
 
 
 def test_cuda_default_raises_without_card(monkeypatch):
