@@ -6,15 +6,17 @@
 Phases, each of which must pass or the script exits non-zero:
   1. build csrc/trace.cu, csrc/megakernel.cu, csrc/shade.cu,
      csrc/roofline.cu and csrc/gather.cu with nvcc for sm_90a, one nvcc
-     each, all started together, and start phases 16, 22 and 23's builds
-     in a child process at the lowest CPU priority, so they compile while
-     phases 2-15 run: trace.cu and megakernel.cu under each walk variant
-     of WALK_VARIANTS (build defines of csrc/trace_common.cuh), shade.cu
-     under "simt", trace.cu under each of ORDER_VARIANTS and
-     csrc/ablate.cu; print
+     each (megakernel.cu three, one an entry point), all started
+     together, and start phases 16, 22 and 23's builds in a child process
+     at the lowest CPU priority, so they compile while phases 2-15 run:
+     trace.cu under each walk variant of WALK_VARIANTS (build defines of
+     csrc/trace_common.cuh) and megakernel.cu under those not in
+     WALK_TRACE_ONLY, shade.cu under "simt", trace.cu under each of
+     ORDER_VARIANTS and csrc/ablate.cu; print each build's seconds,
      ptxas's register and spill reports of the default builds (and, in
      phase 16, of the SIMT walk's and the index order's), and fail on a
-     spill in any build;
+     spill in any build; after each phase, a [clock] line gives the
+     seconds since the start;
   2. hold the trace kernel against its plain PyTorch version on the Cornell
      box: 256² primary rays and one bounce of NEE shadow rays, closest-hit
      and any-hit, bit for bit on every lane (as in every trace phase);
@@ -49,11 +51,11 @@ Phases, each of which must pass or the script exits non-zero:
      yardstick: the difference is the shading); then the same comparison
      with every material two-sided;
  10. that scene's path through render() with PathTracer(max_depth=6,
-     fused_shade="on") at 256², 64 spp (counted) against fused_shade=
-     "off" under the image rule, with both rays/s and a 1-spp profile of
-     each; then the same scene on the megakernels: mega_path against
-     path_plain lane by lane, and render_persistent at 64 spp against
-     the eager image;
+     fused_shade="on") at 256², SHADE_EAGER_SPP (counted) against
+     fused_shade="off" under the image rule, with both rays/s and a 1-spp
+     profile of each; then the same scene on the megakernels: mega_path
+     against path_plain lane by lane, and render_persistent at
+     SHADE_EAGER_SPP against the eager image;
  11. the leaf-families scene (every leaf BSDF family, a two-sided pane,
      smooth spheres; 256², 6 bounces): the trace kernel against its plain
      version on its camera and shadow rays, and on the wavefront of an
@@ -73,12 +75,13 @@ Phases, each of which must pass or the script exits non-zero:
      one-sided (timed, with phase 9's yardstick), with the share of lanes
      tracing a shadow ray;
  15. that one-sided scene's eager path with fused_shade "off" and "on"
-     at 16 spp (counted), both rays/s and a 1-spp profile of each, the
+     at LEAF_EAGER_SPP (counted), both rays/s and a 1-spp profile of each, the
      images under the image rule, and render_persistent against them;
  16. the cluster walk's builds against the default ("new"), in turns
      X, new, new, X for the walk before the warp-cooperative redesign
      ("old") and the SIMT walk ("simt"), then the cooperative threshold T
-     at 4, 8, 12, 16, 20 and 33 once each, on the Cornell 2048-spp
+     at 4, 8, 12, 16, 20 and 33 once each (the trace kernel alone), on
+     the Cornell 2048-spp
      mega_persistent launch (with bench-scale rays/s for old and new),
      the leaf-families 256-spp launch, and the trace kernel on Cornell's
      and the leaf scene's bounce-0 rays and the leaf scene's bounce-3
@@ -95,19 +98,21 @@ Phases, each of which must pass or the script exits non-zero:
      mega_bounce lane by lane at bounce 0 and from the state after 3
      plain bounces and one pass bounce by bounce (counted), mega_path
      against path_plain lane by lane and render() with MegaPathTracer at
-     8 spp against the eager render (counted), render_persistent at 64
-     spp against the eager image (its trace launches counted),
+     8 spp against the eager render (counted), render_persistent at
+     LIGHTS_PERSIST_SPP against the eager image (its trace launches
+     counted),
      mega_persistent against persistent_plain on every 16th pixel at 16
      spp, and one 256-spp launch timed beside its bound; these
      megakernel launches take the kExt instantiations;
  18. the thin lens (Cornell, aperture 0.05, focus 2): mega_persistent
      against persistent_plain lane by lane at 16 spp, render_persistent
-     at 64 spp against the eager render with the same camera, and a
+     at LIGHTS_PERSIST_SPP against the eager render with the same camera,
+     and a
      blur check against the pinhole;
  19. the shade kernel on the four-material scene with the point, spot,
      directional and constant lights added: against shade_plain lane by
      lane at bounces 0 and 3 (timed, with the shares of lanes whose NEE
-     sample is delta or the sky), then the eager path at 64 spp, fused
+     sample is delta or the sky), then the eager path at SHADE_EAGER_SPP, fused
      "on" against "off". Phases 17-20 require bit-equality on every
      lane;
  20. the homogeneous medium (FOG_SCENES: the foggy Cornell box at 256²,
@@ -140,8 +145,9 @@ Phases, each of which must pass or the script exits non-zero:
      ordered_walk_plain (visits included) and dense.py bit for bit,
      closest and any hit, timed beside its bound and the warps' mean
      visits; then in turns (ORDER_TURNS) against its build in index
-     order (ORDER_VARIANTS), held exact, with Cornell's rays too; the eager rays/s of leaf and
-     texenv at 16 spp, fused off and on, under the default and the
+     order (ORDER_VARIANTS), held exact, with Cornell's rays too; the
+     eager rays/s of leaf and texenv at ORDER_EAGER_SPP, fused off and
+     on, under the default and the
      index-order builds; then the probes of mitsuba_tpu_torch/
      experiments: e0's FFMA and FMUL+FADD TFLOP/s, e1's rays/s at the
      TPU probe's inputs and on the Cornell and leaf tables with the
@@ -174,7 +180,7 @@ Phases, each of which must pass or the script exits non-zero:
      peak memory and trace launches;
  25. (dist_phase) the sharded paths of mitsuba_tpu_torch/parallel, ranks
      spawned after phase 1's builds: gloo at 2 and 4 ranks on this card,
-     render_sharded (Cornell 256², 8 bounces, 16 spp) and
+     render_sharded (Cornell 256², 8 bounces, 4 spp) and
      render_persistent_sharded (64 spp) bit for bit equal to render_fn
      and render_persistent, render_grad_sharded at 2 ranks (64², 4 spp)
      against one process's loss.backward() (the loss bit for bit, the
@@ -183,15 +189,16 @@ Phases, each of which must pass or the script exits non-zero:
      rank's kernel launches counted;
  26. (compaction_phase, run last, when no build is running)
      PathTracer's wavefront machinery (compaction, coherence sort,
-     prefix gate) on the leaf-families scene at 16 spp and the
-     four-material scene at 64 spp, eager at 256² with the trace kernel:
+     prefix gate) on the leaf-families scene at LEAF_EAGER_SPP and the
+     four-material scene at 16 spp, eager at 256² with the trace kernel:
      the defaults against the compaction threshold raised (all off) and
      gate_depth 0 (the gate alone off), one turn each, every image bit
      for bit equal, rays/s by setting, the live lanes and the gate's
      prefix by bounce, the trace launches;
  27. (cli_phase) the command-line renderer (mitsuba_tpu_torch/cli.py),
      in-process through cli.run on each of the five scenes/*.xml at its
-     own film size and spp (cornell.xml at -s 64), each writing an EXR:
+     own film size and spp (cornell.xml at -s CLI_CORNELL_SPP), each
+     writing an EXR:
      the route each takes (megakernel or eager, with the refusal reason),
      its trace and mega_persistent launches, rays, wall seconds and
      rays/s; every EXR read back through io/image.py's read_exr equal to
@@ -199,7 +206,21 @@ Phases, each of which must pass or the script exits non-zero:
      megakernel-route scene at 16 spp through the CLI against render_fn
      of the same loaded scene (the trace kernel) under the image rule;
      then one `python3 -m mitsuba_tpu_torch scenes/checker.xml` process
-     with no --device, whose log must name the megakernel route on cuda.
+     with no --device, whose log must name the megakernel route on cuda;
+ 28. (lod_phase) footprint LoD path tracing on texenv (config 3's mip
+     lookups): the trace kernel on the footprint's rays and the shade
+     kernel on bounce 0's LoD-resolved rows against their plain versions,
+     LoDPathTracer.render_lod at 256², 8 bounces, 16 spp, fused on
+     (rays/s, launches) beside the level-0 render of the same rays, the
+     card's render_lod fused on and off against the CPU's at
+     TEXENV_CPU_RES² (image rule), the prefiltering's lower std on the
+     minified checker of tests/test_footprint.py; FootprintIntegrator's
+     AOV at 256², card against CPU; and scenes/cornell.xml rewritten to a
+     temporary directory for each newly ported loader sensor and
+     integrator (ao, field, info, multichannel, baseFrameWiWo, adaptive),
+     each through cli.run on the eager route with its trace launches and
+     its EXR read back bit for bit (the multichannel ones by channel
+     name).
 
 The last two lines are the card's name and power limit, as nvidia-smi
 reports them, and {"ok": true, "device": {...}}; the line before them lists
@@ -217,8 +238,9 @@ the program launches them), and under "prb" (the trace kernel) phase
 detached forward's launches, CUDA-event times and peak memory, under
 "dist" (the trace kernel and mega_persistent) phase 25's launches by
 rank, under "compaction" (the trace kernel) phase 26's launches,
-rays/s by setting and live lanes by bounce, and under "cli" (the trace
-kernel and mega_persistent) phase 27's launches by scene; phase 16
+rays/s by setting and live lanes by bounce, under "cli" (the trace
+kernel and mega_persistent) phase 27's launches by scene, and under "lod"
+(the trace and shade kernels) phase 28's launches by run; phase 16
 prints
 {"walk": ...}, its times by variant. Exits non-zero
 without a CUDA device, and without the package beside it.
@@ -241,6 +263,9 @@ import torch
 
 from mitsuba_tpu_torch.experiments import time_ms
 
+# The eager spp of phases 10, 15, 17-19, 22 and 25-27 are kept low to hold
+# the whole script near 600 s on a slow card host, half the time a run of
+# it is given.
 DEV = "cuda"
 CORNELL_RES = 256
 SPP = 64
@@ -308,8 +333,9 @@ COMPOSITE_OPS = {"mix eval": 13, "mix pick": 5, "mix delta": 2,
                  "rc lobe sample": 59, "rc weight": 9}
 COMPOSITE_CODES = (13, 14, 17)
 # the fused shade phases: the four-material scene of
-# tests/test_pallas_tpu.py:160-183 at 256², 6 bounces, 64 spp
+# tests/test_pallas_tpu.py:160-183 at 256², 6 bounces, SHADE_EAGER_SPP
 SHADE_DEPTH = 6
+SHADE_EAGER_SPP = 16        # phases 10 and 19, fused on vs off
 SHADE_BOUNCES = (0, 3)
 # fp32 operations of the fused shade kernel for one active lane, counted
 # from csrc/shade.cu as SHADE_OPS is: the work every active lane does, the
@@ -323,10 +349,10 @@ LEAF_PERSIST_SPP = 256      # render_persistent, timed
 LEAF_PLAIN_LANES = 16       # persistent_plain on every 16th pixel ...
 LEAF_PLAIN_SPP = 16         # ... at 16 spp
 LEAF_BOUNCES = (0, 3)
-LEAF_EAGER_SPP = 16         # phase 15
+LEAF_EAGER_SPP = 8          # phases 15 and 26
 # the lights-and-composites phases (17-19): 256², 8 bounces
 LIGHTS_SPP = 8              # render() with MegaPathTracer against eager
-LIGHTS_PERSIST_SPP = 64     # render_persistent against the eager image
+LIGHTS_PERSIST_SPP = 16     # render_persistent against the eager image
 LIGHTS_TIMED_SPP = 256      # one mega_persistent launch, timed
 LIGHTS_PLAIN_LANES = 16     # persistent_plain on every 16th pixel ...
 LIGHTS_PLAIN_SPP = 16       # ... at 16 spp
@@ -351,6 +377,10 @@ WALK_VARIANTS = {
 # once each
 WALK_TURNS = ("old", "simt", "new", "new", "simt", "old", "T4", "T8", "T12",
               "T16", "T20", "T33")
+# the threshold sweep times the trace kernel alone: only trace.cu is built
+# under these (megakernel.cu under each of them cost six more builds of
+# its 18 kernels beside phases 2-15)
+WALK_TRACE_ONLY = ("T4", "T8", "T12", "T16", "T20", "T33")
 WALK_DEFAULT_T = 24         # MITSUBA_WALK_T's default in trace_common.cuh
 # phase 20: the homogeneous medium. The foggy Cornell box of
 # tests/test_mega_tpu.py:335-365 at the main path's width, the
@@ -399,7 +429,7 @@ ORDER_TURNS = ("new", "index", "index", "new")
 ORDER_SCENES = ("leaf", "lights", "texenv", "four_material")
 ORDER_BOUNCES = (0, 3)
 ORDER_DEPTH = 6             # the PathTracer whose wavefronts are traced
-ORDER_EAGER_SPP = 16        # leaf (rough plastic swapped) and texenv
+ORDER_EAGER_SPP = 4         # leaf (rough plastic swapped) and texenv
 # phase 22's probes (mitsuba_tpu_torch/experiments): e0 held to its plain
 # version over E0_CHECK_ITERS steps (and its variants apart on at least
 # E0_DIFFER of the lanes), e1 on scene tables over E1_SCENE_ITERS
@@ -446,7 +476,7 @@ PRB_LR = {"mat_params": 20.0, "em_radiance": 100.0}   # descent step sizes
 # phase 25: the sharded paths (mitsuba_tpu_torch/parallel) on the Cornell
 # box, each case (kind, res, max_depth, spp, seed) of
 # parallel/dryrun.py::cornell_cases
-DIST_RENDER = ("render", CORNELL_RES, MAX_DEPTH, 16, 0)          # (a)
+DIST_RENDER = ("render", CORNELL_RES, MAX_DEPTH, 4, 0)           # (a)
 DIST_GRAD = ("grad", 64, MAX_DEPTH, 4, 0)                        # (b)
 DIST_PERSIST = ("persistent", CORNELL_RES, MAX_DEPTH, PERSIST_SPP, 0)  # (c)
 DIST_WORLDS = (2, 4)        # gloo ranks sharing the one card
@@ -457,14 +487,47 @@ DIST_DRYRUN_REL = 1e-5      # (d): its loss against the CPU forward
 # at CORNELL_RES² (65,536 lanes: the gate is on) with the trace kernel,
 # SHADE_DEPTH bounces: the defaults ("on"), the gate off ("no gate") and
 # all three off ("off"), in these turns
-COMPACT_SCENES = (("leaf", LEAF_EAGER_SPP), ("four_material", 64))
+COMPACT_SCENES = (("leaf", LEAF_EAGER_SPP), ("four_material", 16))
 COMPACT_TURNS = ("off", "on", "no gate")
 # phase 27: the command-line renderer on the repo's scene files, each at its
 # own film size and spp (cornell.xml at CLI_CORNELL_SPP, the README's -s)
 CLI_SCENES = ("cornell.xml", "materials.xml", "checker.xml", "dof.xml",
               "volumetric.xml")
-CLI_CORNELL_SPP = 64
+CLI_CORNELL_SPP = 16
 CLI_CHECK_SPP = 16          # megakernel route against render_fn
+# phase 28: footprint LoD path tracing on texenv (config 3's mip lookups),
+# the footprint AOV, and cornell.xml under each newly ported sensor and
+# integrator through the CLI
+LOD_SPP = 16                # render_lod at CORNELL_RES², TEXENV_DEPTH
+LOD_CHECKER = (32, 4, 2)    # the minified checker: res, spp, max_depth
+LOD_FP_TOL = 1e-4           # footprint AOV, card vs CPU, on >= 99.9% of
+                            # pixels: |Δ| <= LOD_FP_TOL · max(1, |ref|)
+LOD_CLI_SPP = 4
+LOD_CLI_ADAPTIVE_SPP = 32   # two batches of 16
+CORNELL_PATH = ('<integrator type="path">\n    <integer name="maxDepth" '
+                'value="4"/>\n  </integrator>')
+CORNELL_SENSOR = '<sensor type="perspective">'
+CORNELL_LOOKAT = 'origin="0.5, 0.5, 2.45" target="0.5, 0.5, 0"'
+METER_LOOKAT = 'origin="0.5, 0.8, 0.9" target="0.5, 0.8, 0"'   # in the box
+_KID = '<integrator type="{}">{}</integrator>'
+LOD_CLI_SENSORS = {
+    "orthographic": "", "spherical": "",
+    "telecentric": '<float name="apertureRadius" value="0.02"/>'
+                   '<float name="focusDistance" value="2.45"/>',
+    "perspective_rdist": '<string name="kc" value="-0.1, 0.02"/>',
+    "radiancemeter": "", "irradiancemeter": ""}
+LOD_CLI_INTEGRATORS = {
+    "ao": '<integrator type="ao"/>',
+    "field": _KID.format("field", '<string name="field" value="shNormal"/>'),
+    "info": _KID.format("info", '<string name="infoName" value="distance"/>'),
+    "multichannel": _KID.format("multichannel", _KID.format(
+        "path", '<integer name="maxDepth" value="4"/>') + _KID.format(
+        "field", '<string name="field" value="distance"/>')),
+    "baseFrameWiWo": _KID.format("baseFrameWiWo",
+                                 '<integer name="maxDepth" value="4"/>'),
+    "adaptive": _KID.format("adaptive", _KID.format(
+        "path", '<integer name="maxDepth" value="4"/>'))}
+
 
 @contextlib.contextmanager
 def walk_build(*defines, trace_only=False):
@@ -493,11 +556,20 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+_T0 = time.perf_counter()
+
+
+def clock(what):
+    """After each phase: the seconds since the script started."""
+    print(f"[clock] {what}: {time.perf_counter() - _T0:.1f} s", flush=True)
+
+
 def build_jobs(variants):
     """Phase 1's nvcc builds: the five libraries, or (variants) the
     builds the child process makes beside phases 2-15: the walk variants
-    phases 16 and 22 compare, trace.cu and megakernel.cu under each of
-    WALK_VARIANTS, shade.cu under "simt", trace.cu under each of
+    phases 16 and 22 compare, trace.cu under each of WALK_VARIANTS and
+    megakernel.cu under those not in WALK_TRACE_ONLY, shade.cu under
+    "simt", trace.cu under each of
     ORDER_VARIANTS, and phase 23's ablate.cu (the only build there without
     defines)."""
     from mitsuba_tpu_torch.accel import megakernel as mk
@@ -507,22 +579,34 @@ def build_jobs(variants):
     if not variants:
         return [(trace.build, ()), (mk.build, ()), (sk.build, ()),
                 (roofline.build, ()), (gather_probe.build, ())]
-    return ([(fn, defines) for defines in WALK_VARIANTS.values() if defines
-             for fn in (trace.build, mk.build)]
+    return ([(fn, defines) for name, defines in WALK_VARIANTS.items()
+             if defines for fn in ((trace.build,) if name in WALK_TRACE_ONLY
+                                   else (trace.build, mk.build))]
             + [(sk.build, WALK_VARIANTS["simt"])]
             + [(trace.build, defines) for defines in ORDER_VARIANTS.values()]
             + [(ablate.build, ())])
 
 
-def run_builds(jobs, shown=()):
+def run_builds(jobs, shown=(), times=True):
     """Each job's build at once, one nvcc each (a cached library is
-    reused); prints the ptxas report of the libraries built with the
-    defines in `shown`, and fails on a missing report or a spill."""
+    reused); prints each build's seconds (with times) and the ptxas
+    report of the
+    libraries built with the defines in `shown`, and fails on a missing
+    report or a spill."""
+    t0 = time.perf_counter()
+
+    def timed(fn, defines):
+        out = fn(defines)
+        return out, time.perf_counter() - t0
+
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        builds = [b.result() for b in [pool.submit(fn, defines)
+        builds = [b.result() for b in [pool.submit(timed, fn, defines)
                                        for fn, defines in jobs]]
-    for (lib, report), (_, defines) in zip(builds, jobs):
+    for ((lib, report), secs), (_, defines) in zip(builds, jobs):
         label = " ".join(defines) or "(default)"
+        if times:
+            print(f"[build] {lib.name} {label}: done {secs:.1f} s after "
+                  f"the builds started", flush=True)
         if defines in shown:
             print(f"[build] {lib.name} {label}\n{report}", flush=True)
         check("registers" in report, f"{lib.name}: no ptxas register report")
@@ -554,13 +638,17 @@ def start_variant_builds():
 def join_variant_builds(proc, t0):
     out = proc.communicate()[0]
     check(proc.returncode == 0, f"variant builds failed:\n{out}")
+    print("\n".join(line for line in out.splitlines()
+                    if line.startswith("[build] ") and ": done " in line),
+          flush=True)
     print(f"[build] walk variants and ablate.cu: {len(build_jobs(True))} "
           f"builds beside phases 2-15, done {time.perf_counter() - t0:.1f} "
           f"s after they started", flush=True)
     # cached now: print the SIMT walk's, the index order's and ablate.cu's
     # reports, check every build's
     run_builds(build_jobs(True), shown=(WALK_VARIANTS["simt"],
-                                        ORDER_VARIANTS["index"], ()))
+                                        ORDER_VARIANTS["index"], ()),
+               times=False)
 
 
 def card_line():
@@ -1483,7 +1571,7 @@ def shade_phases(card):
 
     # ---- 10. the fused path through render(), against the eager tail ----
     film = Film(CORNELL_RES, CORNELL_RES, "box")
-    results = {}
+    results, spp = {}, SHADE_EAGER_SPP
     for mode in ("off", "on"):
         integ = PathTracer(max_depth=SHADE_DEPTH, fused_shade=mode)
         render_fn(scene, cam, film, integ, spp=1, seed=0, device=DEV)
@@ -1491,13 +1579,13 @@ def shade_phases(card):
         trace.reset_launches()
         sk.reset_launches()
         t0 = time.perf_counter()
-        img, n = render_fn(scene, cam, film, integ, spp=SPP, seed=0,
+        img, n = render_fn(scene, cam, film, integ, spp=spp, seed=0,
                            device=DEV)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {**trace.LAUNCHES, **sk.LAUNCHES}
         results[mode] = (img, int(n), launches)
-        print(f"[fused {mode}] {CORNELL_RES}², {SHADE_DEPTH} bounces, {SPP} "
+        print(f"[fused {mode}] {CORNELL_RES}², {SHADE_DEPTH} bounces, {spp} "
               f"spp: {wall:.3f} s, {int(n)} rays, {int(n) / wall:.4g} rays/s,"
               f" mean {img.mean().item():.5f}, launches {launches} ({card})",
               flush=True)
@@ -1505,12 +1593,12 @@ def shade_phases(card):
         profile_pass(scene, cam, film, integ, card)
     (img_off, n_off, l_off), (img_on, n_on, l_on) = results["off"], \
         results["on"]
-    check(l_on["shade"] == SHADE_DEPTH * SPP,
-          f"shade launched {l_on['shade']} times, want {SHADE_DEPTH * SPP}")
+    check(l_on["shade"] == SHADE_DEPTH * spp,
+          f"shade launched {l_on['shade']} times, want {SHADE_DEPTH * spp}")
     check(l_off["shade"] == 0 and l_on["trace_any"] == 0,
           "the eager tail launched the shade kernel or the fused tail a "
           "shadow trace")
-    image_rule(img_on, img_off, f"fused on vs off, {SPP} spp")
+    image_rule(img_on, img_off, f"fused on vs off, {spp} spp")
     check(abs(n_on - n_off) <= 1e-4 * n_off,
           f"ray counts {n_on} (on) vs {n_off} (off)")
     # the same scene on the megakernels: mega_path lane by lane, and the
@@ -1522,9 +1610,9 @@ def shade_phases(card):
     p = mk.path_plain(integ_m.tables, integ_m.rr_depth, SHADE_DEPTH,
                       SHADE_DEPTH, st0, pix, samp, 0)
     compare_rows("four-material mega_path, one sample", k, p)
-    img_p, n_p = render_persistent(integ_m, cam, SPP, seed=0)
+    img_p, n_p = render_persistent(integ_m, cam, spp, seed=0)
     image_rule(img_p, img_off, f"four-material render_persistent vs eager, "
-                               f"{SPP} spp")
+                               f"{spp} spp")
     check(abs(int(n_p) - n_off) <= 1e-4 * n_off,
           f"four-material persistent rays {int(n_p)} vs {n_off}")
     b0 = timing[SHADE_BOUNCES[0]]
@@ -1971,8 +2059,8 @@ def lights_phases(card, kernels):
                      int(k[16].sum()), int(k[17].sum()), 0, pix.shape[0],
                      16, 18, tables, card)}
 
-    # ---- 17. mega_persistent: 64 spp against the eager image, every 16th
-    # pixel against persistent_plain, one timed 256-spp launch -------------
+    # ---- 17. mega_persistent: LIGHTS_PERSIST_SPP against the eager image,
+    # every 16th pixel against persistent_plain, one timed 256-spp launch
     trace.reset_launches()
     img_e, n_e = render_fn(scene, cam, film, eager, spp=LIGHTS_PERSIST_SPP,
                            seed=0, device=DEV)
@@ -2106,23 +2194,23 @@ def lights_phases(card, kernels):
                   f"{timing[b]['any_hit_ms'] * 1e3:.2f} us ({card})",
                   flush=True)
         st = tracer.bounce(scene, st, 0, pix, samp, b)[0]
-    results = {}
+    results, spp = {}, SHADE_EAGER_SPP
     for mode in ("off", "on"):
         integ_e = PathTracer(max_depth=SHADE_DEPTH, fused_shade=mode)
         sk.reset_launches()
         t0 = time.perf_counter()
-        img, n = render_fn(scene, cam4, film, integ_e, spp=SPP, seed=0,
+        img, n = render_fn(scene, cam4, film, integ_e, spp=spp, seed=0,
                            device=DEV)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         results[mode] = (img, int(n), sk.LAUNCHES["shade"])
         print(f"[shade lights fused {mode}] {res}², {SHADE_DEPTH} bounces, "
-              f"{SPP} spp: {wall:.3f} s, {int(n)} rays, {int(n) / wall:.4g} "
+              f"{spp} spp: {wall:.3f} s, {int(n)} rays, {int(n) / wall:.4g} "
               f"rays/s, mean {img.mean().item():.5f} ({card})", flush=True)
         check(bool(torch.isfinite(img).all()), f"fused {mode}: NaN/Inf")
     (img_off, n_off, _), (img_on, n_on, l_on) = results["off"], results["on"]
-    check(l_on == SHADE_DEPTH * SPP, f"shade launched {l_on} times")
-    image_rule(img_on, img_off, f"lights fused on vs off, {SPP} spp")
+    check(l_on == SHADE_DEPTH * spp, f"shade launched {l_on} times")
+    image_rule(img_on, img_off, f"lights fused on vs off, {spp} spp")
     check(abs(n_on - n_off) <= 1e-4 * n_off, f"lights rays {n_on} vs {n_off}")
     out["shade"] = {"launches": l_on, "max_abs_err": err,
                     **timing[SHADE_BOUNCES[0]],
@@ -3968,6 +4056,290 @@ def cli_phase(card, kernels):
           flush=True)
 
 
+def lod_desc(builder, tf, shapes, texture):
+    """tests/test_footprint.py's minified checkerboard over either
+    package's modules: a 512² bitmap of 256² tiles on an 8×8 diffuse quad
+    under an area light."""
+    d = builder.SceneDesc()
+    tid = d.add_texture(texture.checkerboard((1, 1, 1), (0, 0, 0), res=512,
+                                             tiles=256))
+    m = d.add_material(kind="diffuse", albedo_texture=tid)
+    d.add_shape(shapes.rectangle(), to_world=tf.scale(4.0), material=m)
+    d.add_shape(shapes.rectangle(),
+                to_world=tf.translate([0, 0, 6]) @ tf.rotate(
+                    [1, 0, 0], 180) @ tf.scale(8.0),
+                material=0, radiance=(6.0, 6.0, 6.0))
+    return d
+
+
+def cli_variants(root, tmp):
+    """scenes/cornell.xml written to `tmp` once for each sensor of
+    LOD_CLI_SENSORS (a meter moved into the box, METER_LOOKAT) and each
+    integrator of LOD_CLI_INTEGRATORS (the file itself is not touched):
+    {name: (path, -s)}."""
+    with open(os.path.join(root, "scenes", "cornell.xml")) as f:
+        text = f.read()
+    check(all(line in text for line in (CORNELL_PATH, CORNELL_SENSOR,
+                                        CORNELL_LOOKAT)),
+          "scenes/cornell.xml no longer holds the lines phase 28 swaps")
+    out = {}
+    for kind, props in LOD_CLI_SENSORS.items():
+        doc = text.replace(CORNELL_SENSOR, f'<sensor type="{kind}">{props}')
+        # a meter looks at the back wall from inside the box
+        out[kind] = doc.replace(CORNELL_LOOKAT, METER_LOOKAT) \
+            if kind.endswith("meter") else doc
+    for kind, xml in LOD_CLI_INTEGRATORS.items():
+        out[kind] = text.replace(CORNELL_PATH, xml)
+    paths = {}
+    for name, doc in out.items():
+        path = os.path.join(tmp, f"cornell_{name}.xml")
+        with open(path, "w") as f:
+            f.write(doc)
+        paths[name] = (path, LOD_CLI_ADAPTIVE_SPP if name == "adaptive"
+                       else LOD_CLI_SPP)
+    return paths
+
+
+def lod_phase(card, kernels):
+    """Phase 28: (a) LoDPathTracer.render_lod on texenv at CORNELL_RES²,
+    TEXENV_DEPTH, LOD_SPP, fused "on" (rays/s and launches, beside the
+    level-0 render of the same rays), the trace kernel on the footprint's
+    rays and the shade kernel on bounce 0's LoD-resolved rows against
+    their plain versions, the card's render_lod (fused on and off)
+    against the CPU's at TEXENV_CPU_RES² under the image rule, and the
+    prefiltering's lower pixel-to-pixel std on the minified checker; (b)
+    FootprintIntegrator on texenv at CORNELL_RES², card against CPU; (c)
+    scenes/cornell.xml with each new sensor and integrator through
+    cli.run, every EXR read back. Adds a "lod" object (launches by run,
+    the shade kernel's time on the LoD rows) to the trace and shade
+    kernels' entries of `kernels`."""
+    import tempfile
+
+    from mitsuba_tpu_torch import cli
+    from mitsuba_tpu_torch.accel import megakernel as mk
+    from mitsuba_tpu_torch.accel import shade_kernel as sk
+    from mitsuba_tpu_torch.accel import trace
+    from mitsuba_tpu_torch.core import rng
+    from mitsuba_tpu_torch.core import transform as tf
+    from mitsuba_tpu_torch.film.film import Film
+    from mitsuba_tpu_torch.integrator.common import DIM_PIXEL, ray_mint
+    from mitsuba_tpu_torch.integrator.footprint import (FootprintIntegrator,
+                                                        LoDPathTracer,
+                                                        first_hit_footprint,
+                                                        footprint_extent)
+    from mitsuba_tpu_torch.integrator.path import PathTracer, initial_state
+    from mitsuba_tpu_torch.io.image import read_exr, read_exr_channel_names
+    from mitsuba_tpu_torch.render import render_fn
+    from mitsuba_tpu_torch.scene import builder, shapes
+    from mitsuba_tpu_torch.sensor.sensor import PerspectiveCamera
+    from mitsuba_tpu_torch.texture import texture
+
+    t_start = time.perf_counter()
+    names = ("trace_closest", "trace_any", "shade")
+    out = {n: {} for n in names}
+
+    def reset():
+        torch.cuda.synchronize()
+        trace.reset_launches()
+        sk.reset_launches()
+
+    def counted():
+        torch.cuda.synchronize()
+        return {k: {**trace.LAUNCHES, **sk.LAUNCHES}[k] for k in names}
+
+    def record(run, launches):
+        for k in names:
+            out[k].setdefault("launches", {})[run] = launches[k]
+
+    # ---- 28 (a). the kernels against their plain versions on this path ---
+    res, depth = CORNELL_RES, TEXENV_DEPTH
+    scene, cam, _ = tex_scene("texenv", res, DEV)
+    film = Film(res, res, "box")
+    pix = torch.arange(res * res, dtype=torch.int32, device=DEV)
+    samp = torch.zeros_like(pix)
+    centres = torch.stack([(pix % res).float() + 0.5,
+                           (pix // res).float() + 0.5], -1)
+    errs = {"trace_closest": 0.0, "trace_any": 0.0}
+    o, d = cam.sample_ray(centres)
+    rays = (o, d, ray_mint(o), torch.full_like(o[:, 0], 1e30), None)
+    compare("lod footprint rays", scene, *rays, errs)
+    out["trace_closest"]["b0"] = measure(
+        "trace_closest, texenv footprint rays", False, scene, rays, 2, card)
+    _, dx, dy = first_hit_footprint(scene, cam, centres)
+    ext = footprint_extent(dx, dy)
+    tracer = LoDPathTracer(max_depth=depth, fused_shade="on") \
+        .specialized_for(scene)
+    jit = rng.sample_2d(0, pix, DIM_PIXEL, 0)
+    st = initial_state(*cam.sample_ray(torch.stack(
+        [(pix % res).float() + jit[:, 0], (pix // res).float() + jit[:, 1]],
+        -1)))
+    packed = tracer.shade_inputs(scene, st, 0, pix, samp, 0, tex_lod=ext)
+    level0 = tracer.shade_inputs(scene, st, 0, pix, samp, 0)
+    check(not torch.equal(packed, level0),
+          "the footprints did not change bounce 0's material rows")
+    run = lambda: sk.run_shade(scene, packed, pix, samp, 0, 0,
+                               tracer.rr_depth, depth)
+    plain_fn = lambda: sk.shade_plain(scene, packed, pix, samp, 0, 0,
+                                      tracer.rr_depth, depth)
+    out["shade"]["max_abs_err"] = compare_exact(
+        "lod shade, bounce 0 LoD rows", run(), plain_fn())
+    out["shade"]["b0"] = {
+        "ms": time_ms(run, 20), "plain_ms": time_ms(plain_fn, 2, warmup=1),
+        **shade_bound("lod shade, bounce 0", scene, packed, 0,
+                      tracer.rr_depth, family_ops(mk.build_mega_tables(
+                          scene)), card, depth)}
+    for k in ("trace_closest", "trace_any"):
+        out[k]["max_abs_err"] = errs[k]
+
+    # ---- 28 (a). render_lod at full width, fused on (counted) ------------
+    lod = LoDPathTracer(max_depth=depth, fused_shade="on")
+    lod.render_lod(scene, cam, film, 1, 0, device=DEV)      # (warm-up)
+    reset()
+    t0 = time.perf_counter()
+    img_lod, n_lod = lod.render_lod_stats(scene, cam, film, LOD_SPP, 0,
+                                          device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counted()
+    record("render_lod", launches)
+    n_lod = int(n_lod)
+    print(f"[lod] texenv render_lod {res}², {depth} bounces, {LOD_SPP} spp, "
+          f"fused on: {wall:.3f} s, {n_lod} rays, {n_lod / wall:.6g} rays/s,"
+          f" mean {img_lod.mean().item():.5f}, launches {launches} ({card})",
+          flush=True)
+    check(bool(torch.isfinite(img_lod).all()), "render_lod: NaN/Inf")
+    check(launches == {"trace_closest": depth * LOD_SPP + 1, "trace_any": 0,
+                       "shade": depth * LOD_SPP},
+          f"render_lod launches {launches}")
+    img_0, n_0, _ = eager_rate(
+        "lod texenv level 0 (render_fn, the same rays)", scene, cam, film,
+        PathTracer(max_depth=depth, fused_shade="on"), card, spp=LOD_SPP,
+        traced=("trace_closest", "shade"), profile=False)
+    its = first_hit_footprint(scene, cam, centres)[0]
+    floor = (its.mat_id == 0).reshape(res, res)
+    std = lambda img: img.mean(-1)[floor].std().item()
+    print(f"[lod] texenv floor ({int(floor.sum())} pixels): std LoD "
+          f"{std(img_lod):.5f}, level 0 {std(img_0):.5f}; image means "
+          f"{img_lod.mean().item():.5f} / {img_0.mean().item():.5f}; "
+          f"render_lod / level-0 rays/s {n_lod / wall:.6g} vs the line "
+          f"above", flush=True)
+
+    # ---- 28 (a). the card against CPU tensors, fused on and off -----------
+    small = Film(TEXENV_CPU_RES, TEXENV_CPU_RES, "box")
+    cpu_scene, cpu_cam, _ = tex_scene("texenv", TEXENV_CPU_RES, "cpu")
+    img_c, n_c = LoDPathTracer(max_depth=depth).render_lod_stats(
+        cpu_scene, cpu_cam, small, TEXENV_CPU_SPP, 0, device="cpu")
+    for mode in ("off", "on"):
+        reset()
+        img_k, n_k = LoDPathTracer(max_depth=depth, fused_shade=mode) \
+            .render_lod_stats(scene, cpu_cam, small, TEXENV_CPU_SPP, 0,
+                              device=DEV)
+        launches = counted()
+        record(f"render_lod {TEXENV_CPU_RES}² fused {mode}", launches)
+        print(f"[lod cpu] {TEXENV_CPU_RES}², {TEXENV_CPU_SPP} spp, fused "
+              f"{mode}: card {int(n_k)} rays, CPU {int(n_c)}, launches "
+              f"{launches}", flush=True)
+        check(launches["trace_closest"] > 0 and (
+            launches["shade"] > 0 if mode == "on"
+            else launches["trace_any"] > 0),
+              f"render_lod fused {mode}: launches {launches}")
+        image_rule(img_k.cpu(), img_c, f"lod card fused {mode} vs CPU")
+        check(abs(int(n_k) - int(n_c)) <= 1e-4 * int(n_c),
+              f"render_lod rays {int(n_k)} vs {int(n_c)}")
+
+    # ---- 28 (a). prefiltering lowers the minified checker's std -----------
+    cres, cspp, cdepth = LOD_CHECKER
+    chk = builder.compile_scene(lod_desc(builder, tf, shapes, texture),
+                                cluster_size=128, device=DEV)
+    ccam = PerspectiveCamera(cres, cres, 45.0, tf.look_at(
+        [0, 0, 5.0], [0, 0, 0], [0, 1, 0]))
+    cfilm = Film(cres, cres, "box")
+    img_f = LoDPathTracer(max_depth=cdepth).render_lod(chk, ccam, cfilm,
+                                                       cspp, 0, device=DEV)
+    img_c0 = render_fn(chk, ccam, cfilm, LoDPathTracer(max_depth=cdepth),
+                       cspp, 0, device=DEV)[0]
+    inner = slice(cres // 4, 3 * cres // 4)
+    sf, s0 = (i[inner, inner, 0].std().item() for i in (img_f, img_c0))
+    mf, m0 = (i[inner, inner, 0].mean().item() for i in (img_f, img_c0))
+    print(f"[lod] minified checker {cres}², {cspp} spp: std LoD {sf:.5f}, "
+          f"level 0 {s0:.5f}; means {mf:.5f} / {m0:.5f}", flush=True)
+    check(sf < 0.6 * s0, f"LoD std {sf} not below 0.6 x level 0's {s0}")
+    check(abs(mf - m0) < 0.15 * m0, f"LoD mean {mf} vs level 0's {m0}")
+
+    # ---- 28 (b). the footprint AOV, card against CPU ----------------------
+    reset()
+    t0 = time.perf_counter()
+    fp_k = FootprintIntegrator().render(scene, cam, film, device=DEV)
+    torch.cuda.synchronize()
+    fp_wall = time.perf_counter() - t0
+    launches = counted()
+    record("footprint", launches)
+    fp_c = FootprintIntegrator().render(cpu_scene, cam, film, device="cpu")
+    fp_k = fp_k.cpu()
+    diff = (fp_k - fp_c).abs() / fp_c.abs().clamp(min=1.0)
+    frac = (diff > LOD_FP_TOL).float().mean().item()
+    print(f"[footprint] texenv {res}²: {fp_wall:.3f} s, launches {launches},"
+          f" AOV mean {fp_k.mean().item():.5f} (CPU "
+          f"{fp_c.mean().item():.5f}), same misses "
+          f"{torch.equal(fp_k == 0, fp_c == 0)}, share off by more than "
+          f"{LOD_FP_TOL} {frac:.6f}, max {diff.max().item():.3g}",
+          flush=True)
+    check(launches["trace_closest"] == 1, f"footprint launches {launches}")
+    check(torch.equal(fp_k == 0, fp_c == 0), "footprint misses differ")
+    check(frac <= 1e-3, f"footprint AOV: {frac} of values differ")
+
+    # ---- 28 (c). cornell.xml under each new sensor and integrator ---------
+    root = os.path.dirname(os.path.abspath(__file__))
+    cli_s = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (path, spp) in cli_variants(root, tmp).items():
+            exr = path.replace(".xml", ".exr")
+            reset()
+            mk.reset_launches()
+            t0 = time.perf_counter()
+            (res_c,) = cli.run([path, "-o", exr, "-q", "-s", str(spp)])
+            wall = time.perf_counter() - t0
+            cli_s[name] = wall
+            launches = counted()
+            record(f"cli {name}", launches)
+            img = res_c.image
+            rate = "" if res_c.n_rays is None else \
+                f", {res_c.n_rays} rays, {res_c.n_rays / res_c.render_s:.6g}" \
+                " rays/s"
+            print(f"[lod cli] cornell {name}: {img.shape[1]}x{img.shape[0]}"
+                  f"x{img.shape[2]}, {res_c.spp} spp, route {res_c.route} "
+                  f"({res_c.refused}), launches {launches}, mega_persistent "
+                  f"{mk.LAUNCHES['mega_persistent']}, render "
+                  f"{res_c.render_s:.3f} s, wall {wall:.3f} s{rate} ({card})",
+                  flush=True)
+            check(res_c.route == "eager" and res_c.device == "cuda"
+                  and mk.LAUNCHES["mega_persistent"] == 0,
+                  f"{name}: route {res_c.route} on {res_c.device}")
+            check(launches["trace_closest"] > 0,
+                  f"{name}: no trace kernel launched")
+            check(np.isfinite(img).all() and np.abs(img).sum() > 0,
+                  f"{name}: image not finite or all zero")
+            back = read_exr(exr)
+            if res_c.channels is None:
+                check(img.shape[2] == 3 and np.array_equal(back, img),
+                      f"{name}: the EXR does not read back as the image")
+                continue
+            stored = read_exr_channel_names(exr)
+            order = [res_c.channels.index(c) for c in stored]
+            check(img.shape[2] in (6, 9)
+                  and stored == sorted(res_c.channels)
+                  and np.array_equal(back, img[..., order]),
+                  f"{name}: the EXR's channels {stored} do not read back")
+            print(f"[lod cli] {name}: channels {res_c.channels}", flush=True)
+    print(f"[lod] phase 28 (c): {sum(cli_s.values()):.1f} s over "
+          f"{len(cli_s)} scene files", flush=True)
+    for entry in kernels:
+        if entry["name"] in names:
+            entry["lod"] = out[entry["name"]]
+    print(f"[lod] phase 28: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+
 def walk_phase(card, cases):
     """Phase 16: each build of WALK_VARIANTS in the turns of WALK_TURNS on
     the same inputs. cases["traces"]: name -> (scene, rays, any_hit), each
@@ -3980,7 +4352,8 @@ def walk_phase(card, cases):
     cases["bench"]: the bench-scale rays/s, for "old" and "new", and
     cases["shade"]: name -> (run, shade_plain's output), each held equal
     bit for bit and timed, for "simt" and "new" (the other variants leave
-    shade.cu as it is).
+    shade.cu as it is). The variants of WALK_TRACE_ONLY run the traces
+    alone.
     Prints the times by turn and their means by variant, and
     {"walk": ...}."""
     from mitsuba_tpu_torch.accel import dense, trace
@@ -3992,7 +4365,8 @@ def walk_phase(card, cases):
     turns = []
     for variant in WALK_TURNS:
         row = {}
-        with walk_build(*WALK_VARIANTS[variant]):
+        trace_only = variant in WALK_TRACE_ONLY
+        with walk_build(*WALK_VARIANTS[variant], trace_only=trace_only):
             for name, (scene, rays, any_hit) in cases["traces"].items():
                 run = lambda: trace.trace(scene, *rays, any_hit)
                 t, tri, u, v, hit = run()
@@ -4002,7 +4376,7 @@ def walk_phase(card, cases):
                     and torch.equal(u, pu) and torch.equal(v, pv)))
                 check(same, f"walk {variant}: {name} differs from plain")
                 row[f"trace {name}"] = time_ms(run, 20)
-            for name, (run, ref) in persistent:
+            for name, (run, ref) in () if trace_only else persistent:
                 ms, out = events_ms(run)
                 check(torch.equal(out, ref),
                       f"walk {variant}: {name} differs from its reference")
@@ -4068,6 +4442,7 @@ def main():
     print(f"[build] {props.multi_processor_count} SMs; one lane per pixel "
           f"gives {CORNELL_RES ** 2 // 32 / props.multi_processor_count:.1f}"
           f" warps per SM at {CORNELL_RES}²", flush=True)
+    clock("phase 1, the five libraries")
 
     # ---- 2. kernel vs plain, Cornell --------------------------------------
     errs = {"trace_closest": 0.0, "trace_any": 0.0}
@@ -4103,6 +4478,7 @@ def main():
             card)
     measure("trace_any, large shadow", True, big, big_shadow, 2, card)
     del big, big_primary, big_shadow
+    clock("phases 2-3")
 
     # ---- 4. the main path at full size ------------------------------------
     film = Film(CORNELL_RES, CORNELL_RES, "box")
@@ -4142,6 +4518,7 @@ def main():
             "library_ms": None})
 
     profile_pass(scene, cam, film, integrator, card)
+    clock("phase 4")
 
     # ---- 5. kernel path against plain path, whole render -------------------
     small_spp = MEGA_SPP
@@ -4310,10 +4687,13 @@ def main():
         "replaces": "mitsuba_tpu/accel/megakernel.py:2478",
         "launches": persist_launches, "max_abs_err": persist_err,
         **persist_row, "library_ms": None})
+    clock("phases 5-8")
 
     shade_row, shade_walk = shade_phases(card)
     kernels.append(shade_row)
+    clock("phases 9-10")
     walk = leaf_phases(card, kernels)
+    clock("phases 11-15")
     walk["shade"].update(shade_walk)
     s1 = BENCH_SEEDS[0]
     walk["traces"].update({"cornell b0 closest": (scene, primary, False),
@@ -4329,24 +4709,39 @@ def main():
 
     walk["bench"] = bench_rate
     join_variant_builds(*variant_builds)
+    clock("the variant builds joined")
     walk_phase(card, walk)
+    clock("phase 16")
     lights_phases(card, kernels)
+    clock("phases 17-19")
     persist = next(k for k in kernels if k["name"] == "mega_persistent")
     fog_phases(card, kernels, {
         "cornell 2048 spp": sum(bench_out[s][0] for s in BENCH_SEEDS)
         / len(BENCH_SEEDS),
         "lights 256 spp": persist["lights_composites"]["ms"]})
+    clock("phase 20")
     tex_phases(card, kernels)
+    clock("phase 21")
     order_phase(card, kernels, {"cornell b0": (scene, primary, False),
                                 "cornell b0 shadow": (scene, shadow, True)})
     probe_phase(card, kernels)
+    clock("phase 22")
     ablate_phase(card, kernels, scene, cam)
+    clock("phase 23")
     prb_phase(card, kernels, scene, cam)
+    clock("phase 24")
     dist_phase(card, kernels, scene, cam)
+    clock("phase 25")
     # ---- 26. the wavefront machinery, timed with no build running --------
     compaction_phase(card, kernels)
+    clock("phase 26")
     # ---- 27. the command-line renderer on the repo's scene files ---------
     cli_phase(card, kernels)
+    clock("phase 27")
+    # ---- 28. LoD path tracing, the footprint AOV, the new sensors and
+    # integrators from scene files -----------------------------------------
+    lod_phase(card, kernels)
+    clock("phase 28")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1510,10 +1510,12 @@ def composite_sample(top, mat_a, mat_b, wix, wiy, wiz, u0, u1, uc,
 
 def build(defines: tuple = ()):
     """Build csrc/megakernel.cu (trace.build_library) with these walk
-    defines (trace.build). The file is compiled with -fmad=false, so every
-    a*b+c rounds twice as PyTorch's eager ops do."""
+    defines (trace.build), in six nvcc processes at once, one for each
+    entry point's kernels under each walk (the file's MITSUBA_PART
+    shares). The file is compiled with -fmad=false, so every a*b+c rounds
+    twice as PyTorch's eager ops do."""
     return trace.build_library("megakernel.cu", "mitsuba_mega",
-                               ("-fmad=false",) + tuple(defines))
+                               ("-fmad=false",) + tuple(defines), parts=6)
 
 
 _TABLE_ARGS = ([ctypes.c_void_p, ctypes.c_void_p,        # woop aabb

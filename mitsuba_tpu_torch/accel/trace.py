@@ -20,6 +20,7 @@ visits included. Both give dense.py's hits on every live lane.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -170,32 +171,58 @@ def _nvcc() -> str:
     return path
 
 
+def _run_nvcc(args: list, path: Path) -> str:
+    proc = subprocess.run([_nvcc(), *args], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {path}:\n{proc.stderr}")
+    return "\n".join(line for line in proc.stderr.splitlines()
+                     if any(k in line for k in ("entry function",
+                                                "registers", "spill")))
+
+
 @functools.lru_cache(maxsize=None)
-def build_library(source: str, stem: str, extra_flags: tuple = ()
-                  ) -> tuple[Path, str]:
+def build_library(source: str, stem: str, extra_flags: tuple = (),
+                  parts: int = 1) -> tuple[Path, str]:
     """Compile csrc/<source> with nvcc into build/kernels/, once per hash
-    of the source, every csrc/*.cuh header and the flags. Returns (library
-    path, ptxas register and spill report); the report is kept beside the
-    library, so a cached build returns it too."""
+    of the source, every csrc/*.cuh header, the flags and `parts`. Returns
+    (library path, ptxas register and spill report); the report is kept
+    beside the library, so a cached build returns it too. With parts > 1
+    the source is compiled `parts` times at once, each time an object with
+    -DMITSUBA_PART=k (k = 1..parts; the source defines its k-th share of
+    the kernels and their launchers), and the objects are linked into one
+    library: ptxas runs one process a share instead of one for every
+    kernel in turn."""
     path = CSRC / source
     flags = list(NVCC_FLAGS) + list(extra_flags)
     digest = hashlib.sha256(path.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
     digest.update(" ".join(flags).encode())
+    if parts > 1:
+        digest.update(f"parts={parts}".encode())
     lib = BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
     report_file = lib.with_suffix(".ptxas.txt")
     if lib.exists() and report_file.exists():
         return lib, report_file.read_text()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(path)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {path}:\n{proc.stderr}")
-    report = "\n".join(line for line in proc.stderr.splitlines()
-                       if any(k in line for k in ("entry function",
-                                                  "registers", "spill")))
+    if parts == 1:
+        report = _run_nvcc([*flags, "-o", str(tmp), str(path)], path)
+    else:
+        compile_flags = [f for f in flags if f != "-shared"]
+        objs = [lib.with_suffix(f".{os.getpid()}.part{k}.o")
+                for k in range(1, parts + 1)]
+        with concurrent.futures.ThreadPoolExecutor(parts) as pool:
+            reports = list(pool.map(
+                lambda k: _run_nvcc([*compile_flags, f"-DMITSUBA_PART={k}",
+                                     "-c", "-o", str(objs[k - 1]),
+                                     str(path)], path),
+                range(1, parts + 1)))
+        report = "\n".join(reports)
+        _run_nvcc([*NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                   *map(str, objs)], path)
+        for obj in objs:
+            obj.unlink()
     report_file.write_text(report)
     os.replace(tmp, lib)
     return lib, report

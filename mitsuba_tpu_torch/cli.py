@@ -14,8 +14,14 @@ with the independent sampler and no hide_emitters, on the card, on a
 scene, camera and film that MegaPathTracer / MegaVolPathTracer.supports
 admits, renders through the persistent megakernel (integrator/mega.py
 render_persistent); everything else renders through render.py
-render_fn, with the trace kernel on the card. The log names the route
-and, where the megakernel was refused, why.
+render_fn, with the trace kernel on the card. An integrator with its
+own outer loop (render_full: the adaptive sampler) renders through it in
+one call, as the JAX CLI does (mitsuba_tpu/cli.py:98-110); a
+MultiChannelIntegrator renders through its own render, pass by pass, and
+its EXR carries its channel names (the JAX CLI sends it through render()
+and fails on the film's [H, W, 4] accumulator). Both are eager routes,
+and under -p every rank renders the whole image (rank 0's is written).
+The log names the route and, where the megakernel was refused, why.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ class Rendered(NamedTuple):
     (numpy float32, as written), the route ("megakernel" or "eager"), the
     megakernel's refusal reason ("" where it ran), rays traced (None
     where the route counts none), render seconds, spp, the device the
-    scene rendered on and the film."""
+    scene rendered on, the film and the EXR channel names (None: RGB)."""
     path: str
     image: object
     route: str
@@ -45,6 +51,7 @@ class Rendered(NamedTuple):
     spp: int
     device: str
     film: object
+    channels: list | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,7 +181,8 @@ def _setup(job: _Job, device):
     integ = loaded.make_integrator()
     if loaded.sampler != "independent" and hasattr(integ, "sampler"):
         integ = dataclasses.replace(integ, sampler=loaded.sampler, spp=spp)
-    integ = integ.specialized_for(scene)
+    if hasattr(integ, "specialized_for"):
+        integ = integ.specialized_for(scene)
     log.info("Scene compiled: %d triangles, %d emitters (%.2fs)",
              int((scene.tri_area > 0).sum()), int(scene.em_type.shape[0]),
              time.time() - t0)
@@ -205,8 +213,10 @@ def _setup(job: _Job, device):
         log.info("Route: megakernel (render_persistent, %s) on %s",
                  type(mega).__name__, scene.device.type)
     else:
-        log.info("Route: eager (render_fn, %s) on %s; megakernel refused: "
-                 "%s", type(integ).__name__, scene.device.type, why)
+        entry = next((e for e in ("render_full", "render_stats")
+                      if hasattr(integ, e)), "render_fn")
+        log.info("Route: eager (%s, %s) on %s; megakernel refused: %s",
+                 entry, type(integ).__name__, scene.device.type, why)
     return loaded, scene, integ, spp, mega, why
 
 
@@ -215,16 +225,27 @@ def _render(job: _Job, device, mesh) -> Rendered:
     not None): progressive passes of REFRESH_CHUNK spp under -r, each
     flushed as a partial image when -r seconds have passed (by rank 0)."""
     from .integrator.mega import render_persistent, render_persistent_sharded
-    from .io.image import write_image
+    from .integrator.multichannel import MultiChannelIntegrator
     from .render import render_fn
     from .util.stats import ProgressReporter
 
     loaded, scene, integ, spp, mega, why = _setup(job, device)
     writer = mesh is None or mesh.rank == 0
+    multi = isinstance(integ, MultiChannelIntegrator)
+    channels = integ.channel_names() if multi else None
     t1 = time.time()
+    if hasattr(integ, "render_full"):
+        # its own outer loop (adaptive sample control), in one call
+        img = integ.render_full(scene, loaded.camera, loaded.film, spp,
+                                job.seed, device=scene.device)
+        final = img.cpu().numpy()
+        return Rendered(job.out, final, "eager", why, None,
+                        time.time() - t1, spp, scene.device.type,
+                        loaded.film)
     chunk = max(1, min(spp, REFRESH_CHUNK)) if job.refresh > 0 else spp
     done, accum = 0, None
-    n_rays = None if mesh is not None and mega is None else 0
+    n_rays = None if mesh is not None and mega is None and not multi \
+        else 0
     progress = ProgressReporter("Rendering", spp, quiet=job.quiet
                                 or not writer)
     last_flush = time.time()
@@ -232,7 +253,10 @@ def _render(job: _Job, device, mesh) -> Rendered:
         this = min(chunk, spp - done)
         seed = job.seed + done
         rays = None
-        if mega is not None and mesh is not None:
+        if multi:
+            img, rays = integ.render_stats(scene, loaded.camera, loaded.film,
+                                           this, seed, device=scene.device)
+        elif mega is not None and mesh is not None:
             img, rays = render_persistent_sharded(mega, loaded.camera, this,
                                                   seed, mesh)
         elif mesh is not None:
@@ -251,7 +275,7 @@ def _render(job: _Job, device, mesh) -> Rendered:
         progress.update(done)
         if (job.refresh > 0 and writer and done < spp
                 and time.time() - last_flush > job.refresh):
-            write_image(job.out, (accum / done).cpu().numpy())
+            _save(job.out, (accum / done).cpu().numpy(), channels)
             last_flush = time.time()
     final = (accum / done).cpu().numpy()      # waits for the device
     render_s = time.time() - t1
@@ -260,24 +284,32 @@ def _render(job: _Job, device, mesh) -> Rendered:
         final = stamp_banner(final)
     return Rendered(job.out, final, "megakernel" if mega is not None
                     else "eager", why, n_rays, render_s, spp,
-                    scene.device.type, loaded.film)
+                    scene.device.type, loaded.film, channels)
+
+
+def _save(path: str, image, channels=None, **exr):
+    """Write an image; an EXR gets `channels` as its channel names (None:
+    RGB) and the keyword arguments of write_exr."""
+    from .integrator.multichannel import write_multichannel_exr
+    from .io.image import write_exr, write_image
+    if not path.lower().endswith(".exr"):
+        write_image(path, image)
+    elif channels is not None:
+        write_multichannel_exr(path, image, channels, **exr)
+    else:
+        write_exr(path, image, **exr)
 
 
 def _write(res: Rendered, job: _Job):
     """Write the final image; an EXR carries the render's annotations
     (ref: renderjob.cpp:109) in the film's compression and channel
-    type."""
-    from .io.image import write_exr, write_image
-    if job.out.lower().endswith(".exr"):
-        film = res.film
-        write_exr(job.out, res.image, annotations={
-            "renderTime": float(res.render_s), "spp": int(res.spp),
-            "generatedBy": "mitsuba_tpu_torch"},
-            compression=film.compression,
-            pixel_type="half"
-            if film.component_format == "float16" else "float")
-    else:
-        write_image(job.out, res.image)
+    type, and a multichannel render's channel names."""
+    _save(job.out, res.image, res.channels, annotations={
+        "renderTime": float(res.render_s), "spp": int(res.spp),
+        "generatedBy": "mitsuba_tpu_torch"},
+        compression=res.film.compression,
+        pixel_type="half"
+        if res.film.component_format == "float16" else "float")
 
 
 if __name__ == "__main__":

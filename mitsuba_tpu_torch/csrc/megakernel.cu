@@ -265,73 +265,65 @@ constexpr int kThreads = 128;
 
 }  // namespace
 
-// C entry points (ctypes, accel/megakernel.py). Pointers are device
-// pointers except `cam`, a host array of 18 floats, and `med`, a host
-// array of the medium's 8 floats or null; n_tris is the count of real
-// triangles (the table's padding follows them); env is the constant
-// environment's emitter row (-1: none); ext picks the kExt instantiations
-// (MegaTables.ext: set with a medium or procedural textures too, or a
-// thin lens); tex picks the kTex ones (MegaTables.textured); each
-// launches on `stream` and returns the cudaError_t of the launch.
-#define MEGA_TABLE_PARAMS                                                     \
-  const void *woop, const void *aabb, int n_clusters, int n_tris,             \
-      const void *attr, const void *mat, const void *em_rows, int et_real,    \
-      const void *em_meta, const void *em_cdf, int n_em, int env, int ext,    \
-      const void *med, int tex
-#define MEGA_TABLES                                                          \
-  make_tables(woop, aabb, n_clusters, n_tris, attr, mat, em_rows, et_real,   \
-              em_meta, em_cdf, n_em, env, med)
-// the instantiation of `kernel` for the walk coop_walk picks, ext and tex
+namespace mitsuba_mega_shares {
+
+// One launch's arguments as its C entry point got them (a: the bounce,
+// n_bounces or spp; cam: the persistent kernel's host array of 18 floats).
+struct Launch {
+  mitsuba_mega::Tables T;
+  int ext, tex;
+  const float* in;
+  float* out;
+  const int* pixel;
+  const int* samp;
+  int n;
+  uint32_t seed;
+  int a, max_depth, rr_depth, iter_cap;
+  const float* cam;
+  cudaStream_t stream;
+};
+
+// The six shares of the kernels: one entry point's under one walk each.
+int bounce_coop(const Launch& L);
+int bounce_simt(const Launch& L);
+int path_coop(const Launch& L);
+int path_simt(const Launch& L);
+int persistent_coop(const Launch& L);
+int persistent_simt(const Launch& L);
+
+}  // namespace mitsuba_mega_shares
+
+namespace {
+
+using mitsuba_mega_shares::Launch;
+
+// the instantiation of `kernel` under the walk kCoop for L.ext and L.tex
 #define MEGA_EXT(kernel, coop)                                               \
-  (tex ? kernel<coop, true, true>                                            \
-       : (ext ? kernel<coop, true, false> : kernel<coop, false, false>))
-#define MEGA_WALK(kernel, tables)                                            \
-  (mitsuba_walk::coop_walk((tables).tris) ? MEGA_EXT(kernel, true)           \
-                                          : MEGA_EXT(kernel, false))
+  (L.tex ? kernel<coop, true, true>                                          \
+         : (L.ext ? kernel<coop, true, false> : kernel<coop, false, false>))
 
-extern "C" int mitsuba_mega_bounce(MEGA_TABLE_PARAMS, const void* state_in,
-                                   void* state_out, const void* pixel,
-                                   const void* samp, int n, uint32_t seed,
-                                   int bounce, int max_depth, int rr_depth,
-                                   void* stream) {
-  if (n <= 0) return 0;
-  const Tables T = MEGA_TABLES;
-  const auto kernel = MEGA_WALK(mega_bounce, T);
-  kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-           static_cast<cudaStream_t>(stream)>>>(
-      T, static_cast<const float*>(state_in),
-      static_cast<float*>(state_out), static_cast<const int*>(pixel),
-      static_cast<const int*>(samp), n, seed, bounce, max_depth, rr_depth);
+template <bool kCoop>
+int run_bounce(const Launch& L) {
+  const auto kernel = MEGA_EXT(mega_bounce, kCoop);
+  kernel<<<(L.n + kThreads - 1) / kThreads, kThreads, 0, L.stream>>>(
+      L.T, L.in, L.out, L.pixel, L.samp, L.n, L.seed, L.a, L.max_depth,
+      L.rr_depth);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int mitsuba_mega_path(MEGA_TABLE_PARAMS, const void* state_in,
-                                 void* state_out, const void* pixel,
-                                 const void* samp, int n, uint32_t seed,
-                                 int n_bounces, int max_depth, int rr_depth,
-                                 void* stream) {
-  if (n <= 0) return 0;
-  const Tables T = MEGA_TABLES;
-  const auto kernel = MEGA_WALK(mega_path, T);
-  kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-           static_cast<cudaStream_t>(stream)>>>(
-      T, static_cast<const float*>(state_in),
-      static_cast<float*>(state_out), static_cast<const int*>(pixel),
-      static_cast<const int*>(samp), n, seed, n_bounces, max_depth,
-      rr_depth);
+template <bool kCoop>
+int run_path(const Launch& L) {
+  const auto kernel = MEGA_EXT(mega_path, kCoop);
+  kernel<<<(L.n + kThreads - 1) / kThreads, kThreads, 0, L.stream>>>(
+      L.T, L.in, L.out, L.pixel, L.samp, L.n, L.seed, L.a, L.max_depth,
+      L.rr_depth);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int mitsuba_mega_persistent(MEGA_TABLE_PARAMS,
-                                       const void* state_in, void* state_out,
-                                       const void* pixel, const void* samp0,
-                                       int n, uint32_t seed, int spp,
-                                       int max_depth, int rr_depth,
-                                       int iter_cap, const void* cam,
-                                       void* stream) {
-  if (n <= 0) return 0;
+template <bool kCoop>
+int run_persistent(const Launch& L) {
   Camera c;
-  const float* f = static_cast<const float*>(cam);
+  const float* f = L.cam;
   for (int k = 0; k < 9; ++k) c.r[k] = f[k];
   for (int k = 0; k < 3; ++k) c.pos[k] = f[9 + k];
   c.tan_half = f[12];
@@ -340,13 +332,115 @@ extern "C" int mitsuba_mega_persistent(MEGA_TABLE_PARAMS,
   c.height = f[15];
   c.aperture = f[16];
   c.focus = f[17];
-  const Tables T = MEGA_TABLES;
-  const auto kernel = MEGA_WALK(mega_persistent, T);
-  kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-           static_cast<cudaStream_t>(stream)>>>(
-      T, static_cast<const float*>(state_in),
-      static_cast<float*>(state_out), static_cast<const int*>(pixel),
-      static_cast<const int*>(samp0), n, seed, spp, max_depth, rr_depth,
-      iter_cap, c);
+  const auto kernel = MEGA_EXT(mega_persistent, kCoop);
+  kernel<<<(L.n + kThreads - 1) / kThreads, kThreads, 0, L.stream>>>(
+      L.T, L.in, L.out, L.pixel, L.samp, L.n, L.seed, L.a, L.max_depth,
+      L.rr_depth, L.iter_cap, c);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// Built with -DMITSUBA_PART=k (k = 1..6) the file defines share k alone,
+// and so compiles only its kernels' three instantiations (kExt, kTex):
+// bounce, path and persistent for k = 1-2, 3-4, 5-6, under the
+// cooperative walk for odd k, whose object also holds that entry point;
+// accel/trace.py build_library compiles the six at once and links them
+// into one library. Without it the file defines all six.
+#ifndef MITSUBA_PART
+#define MITSUBA_PART 0
+#endif
+#define MEGA_PART(k) (MITSUBA_PART == 0 || MITSUBA_PART == (k))
+
+#if MEGA_PART(1)
+int mitsuba_mega_shares::bounce_coop(const Launch& L) {
+  return run_bounce<true>(L);
+}
+#endif
+#if MEGA_PART(2)
+int mitsuba_mega_shares::bounce_simt(const Launch& L) {
+  return run_bounce<false>(L);
+}
+#endif
+#if MEGA_PART(3)
+int mitsuba_mega_shares::path_coop(const Launch& L) {
+  return run_path<true>(L);
+}
+#endif
+#if MEGA_PART(4)
+int mitsuba_mega_shares::path_simt(const Launch& L) {
+  return run_path<false>(L);
+}
+#endif
+#if MEGA_PART(5)
+int mitsuba_mega_shares::persistent_coop(const Launch& L) {
+  return run_persistent<true>(L);
+}
+#endif
+#if MEGA_PART(6)
+int mitsuba_mega_shares::persistent_simt(const Launch& L) {
+  return run_persistent<false>(L);
+}
+#endif
+
+// C entry points (ctypes, accel/megakernel.py). Pointers are device
+// pointers except `cam`, a host array of 18 floats, and `med`, a host
+// array of the medium's 8 floats or null; n_tris is the count of real
+// triangles (the table's padding follows them); env is the constant
+// environment's emitter row (-1: none); ext picks the kExt instantiations
+// (MegaTables.ext: set with a medium or procedural textures too, or a
+// thin lens); tex picks the kTex ones (MegaTables.textured); each
+// launches, in the share of the walk coop_walk picks, on `stream` and
+// returns the cudaError_t of the launch.
+#define MEGA_TABLE_PARAMS                                                     \
+  const void *woop, const void *aabb, int n_clusters, int n_tris,             \
+      const void *attr, const void *mat, const void *em_rows, int et_real,    \
+      const void *em_meta, const void *em_cdf, int n_em, int env, int ext,    \
+      const void *med, int tex
+#define MEGA_RUN_PARAMS                                                       \
+  const void *state_in, void *state_out, const void *pixel, const void *samp, \
+      int n, uint32_t seed
+#define MEGA_LAUNCH(a, iter_cap, cam)                                         \
+  Launch {                                                                    \
+    make_tables(woop, aabb, n_clusters, n_tris, attr, mat, em_rows, et_real,  \
+                em_meta, em_cdf, n_em, env, med),                             \
+        ext, tex, static_cast<const float*>(state_in),                        \
+        static_cast<float*>(state_out), static_cast<const int*>(pixel),       \
+        static_cast<const int*>(samp), n, seed, a, max_depth, rr_depth,       \
+        iter_cap, static_cast<const float*>(cam),                             \
+        static_cast<cudaStream_t>(stream)                                     \
+  }
+#define MEGA_SHARE(name, L)                                                   \
+  (mitsuba_walk::coop_walk((L).T.tris) ? mitsuba_mega_shares::name##_coop(L) \
+                                       : mitsuba_mega_shares::name##_simt(L))
+
+#if MEGA_PART(1)
+extern "C" int mitsuba_mega_bounce(MEGA_TABLE_PARAMS, MEGA_RUN_PARAMS,
+                                   int bounce, int max_depth, int rr_depth,
+                                   void* stream) {
+  if (n <= 0) return 0;
+  const Launch L = MEGA_LAUNCH(bounce, 0, nullptr);
+  return MEGA_SHARE(bounce, L);
+}
+#endif
+
+#if MEGA_PART(3)
+extern "C" int mitsuba_mega_path(MEGA_TABLE_PARAMS, MEGA_RUN_PARAMS,
+                                 int n_bounces, int max_depth, int rr_depth,
+                                 void* stream) {
+  if (n <= 0) return 0;
+  const Launch L = MEGA_LAUNCH(n_bounces, 0, nullptr);
+  return MEGA_SHARE(path, L);
+}
+#endif
+
+#if MEGA_PART(5)
+extern "C" int mitsuba_mega_persistent(MEGA_TABLE_PARAMS, MEGA_RUN_PARAMS,
+                                       int spp, int max_depth, int rr_depth,
+                                       int iter_cap, const void* cam,
+                                       void* stream) {
+  if (n <= 0) return 0;
+  const Launch L = MEGA_LAUNCH(spp, iter_cap, cam);
+  return MEGA_SHARE(persistent, L);
+}
+#endif

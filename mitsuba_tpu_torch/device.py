@@ -13,3 +13,13 @@ def resolve_device(device) -> torch.device:
             "device='cuda' requested but torch sees no CUDA device; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def check_scene_device(scene, device) -> torch.device:
+    """resolve_device(device), which must be the type of device the scene
+    was compiled on (a render never moves a scene)."""
+    dev = resolve_device(device)
+    if scene.device.type != dev.type:
+        raise ValueError(f"scene lives on {scene.device}, render asked "
+                         f"for {dev}")
+    return dev

@@ -273,22 +273,30 @@ class PathTracer:
         return compact, sort, gates
 
     def li_stats(self, scene: SceneData, o, d, seed, pixel_id,
-                 sample_idx=0):
+                 sample_idx=0, tex_lod=None):
         """Like li, but also returns the traced-ray count, a 0-d int64
         tensor: one per live intersection ray, one per attempted shadow
         ray (the JAX package's count). Where `wavefront` turns compaction
         on, the lanes move after every bounce and L comes back in the
         caller's order; with the gate, each bounce reads the live count
-        on the host (one sync a bounce)."""
+        on the host (one sync a bounce). tex_lod: None, or the primary
+        hits' uv footprint extents [N] (LoD path tracing,
+        integrator/footprint.py): bounce 0 looks its textures up at the
+        matching mip level, every later bounce at extent 0 (level 0,
+        trilinear), as the JAX PathTracer does (path.py:259-265). Bounce
+        0 runs before any lane moves, so the extents need no reorder."""
         tracer = self.specialized_for(scene, o.device)
         n = o.shape[0]
         state = initial_state(o, d)
         n_rays = torch.zeros((), dtype=torch.int64, device=o.device)
         compact, sort, gates = tracer.wavefront(scene, n)
+        lod = lambda bounce, m: None if tex_lod is None else (
+            tex_lod if bounce == 0 else torch.zeros_like(tex_lod[:m]))
         if not compact:
             for bounce in range(pass_bounces(self.max_depth)):
                 state, traced, shadow = tracer.bounce(
-                    scene, state, seed, pixel_id, sample_idx, bounce)
+                    scene, state, seed, pixel_id, sample_idx, bounce,
+                    lod(bounce, n))
                 n_rays = n_rays + traced.sum() + shadow.sum()
             return state[9:12].T, n_rays
         # the lanes' pixel ids, sample indices and original positions
@@ -298,7 +306,8 @@ class PathTracer:
         for bounce in range(pass_bounces(self.max_depth)):
             m = gate_width(gates, state[12])
             new, traced, shadow, tri = tracer._bounce(
-                scene, state[:, :m], seed, ids[0, :m], ids[1, :m], bounce)
+                scene, state[:, :m], seed, ids[0, :m], ids[1, :m], bounce,
+                lod(bounce, m))
             n_rays = n_rays + traced.sum() + shadow.sum()
             perm = torch.argsort(lane_keys(new, tri, sort), stable=True)
             state = _splice(new.index_select(1, perm), state)
@@ -306,7 +315,8 @@ class PathTracer:
         L = state[9:12].T
         return torch.zeros_like(L).index_copy(0, ids[2], L), n_rays
 
-    def bounce(self, scene: SceneData, state, seed, pixel, samp, bounce: int):
+    def bounce(self, scene: SceneData, state, seed, pixel, samp, bounce: int,
+               tex_lod=None):
         """One bounce of the wavefront (the plain version of the megakernel
         bounce, accel/megakernel.py): state [16, N] with rows o xyz, d
         xyz, throughput rgb, L rgb, active, prev_pdf, prev_delta,
@@ -315,16 +325,19 @@ class PathTracer:
         [16, N], traced [N] bool: this lane traced a closest-hit ray,
         shadow [N] bool: it attempted a shadow ray, or traced one that
         was not occluded where count_attempted is False). Lanes inactive
-        on entry come out unchanged."""
-        return self._bounce(scene, state, seed, pixel, samp, bounce)[:3]
+        on entry come out unchanged. tex_lod: the lanes' uv footprint
+        extents [N] for the textures' mip level, or None (level 0)."""
+        return self._bounce(scene, state, seed, pixel, samp, bounce,
+                            tex_lod)[:3]
 
-    def _bounce(self, scene, state, seed, pixel, samp, bounce: int):
+    def _bounce(self, scene, state, seed, pixel, samp, bounce: int,
+                tex_lod=None):
         """bounce, with the closest hits' triangle ids [N] (the coherence
         sort's key) as a fourth output."""
         if not self.settled:
             return self.specialized_for(scene, state.device)._bounce(
-                scene, state, seed, pixel, samp, bounce)
-        v = self._vertex(scene, state, seed, pixel, samp, bounce)
+                scene, state, seed, pixel, samp, bounce, tex_lod)
+        v = self._vertex(scene, state, seed, pixel, samp, bounce, tex_lod)
         if self.fused_shade == "on":
             self._check_fused(scene)
             # one kernel for the tail: NEE BSDF eval, shadow trace, MIS,
@@ -345,19 +358,22 @@ class PathTracer:
                 v.its.tri_id)
 
     def shade_inputs(self, scene: SceneData, state, seed, pixel, samp,
-                     bounce: int):
+                     bounce: int, tex_lod=None):
         """The fused shade kernel's packed input rows [K_IN, N] at this
-        bounce of `state` (accel/shade_kernel.py pack_inputs)."""
+        bounce of `state` (accel/shade_kernel.py pack_inputs), textures
+        at the mip level of tex_lod as in `bounce`."""
         from ..accel.shade_kernel import pack_inputs
         v = self.specialized_for(scene, state.device)._vertex(
-            scene, state, seed, pixel, samp, bounce)
+            scene, state, seed, pixel, samp, bounce, tex_lod)
         return pack_inputs(v.its, v.frame, v.mat, v.d, v.throughput, v.L,
                            v.ds, v.active, v.eta_scale)
 
-    def _vertex(self, scene, state, seed, pixel, samp, bounce: int):
+    def _vertex(self, scene, state, seed, pixel, samp, bounce: int,
+                tex_lod=None):
         """The bounce up to its shading tail: the closest hit, the
-        environment and emitter-hit terms added to L, the material, the
-        shading frame and the NEE sample."""
+        environment and emitter-hit terms added to L, the material (its
+        textures at the mip level of the extents tex_lod [N], or level 0
+        where None), the shading frame and the NEE sample."""
         o = state[0:3].T.contiguous()
         d = state[3:6].T.contiguous()
         if self.fixed_rays:     # their gradient is 0 wherever it is taken
@@ -401,7 +417,8 @@ class PathTracer:
                             throughput * le * w_hit[:, None], 0.0)
 
         depth = bounce + 2      # path vertices: camera = 1, this hit
-        mat = resolve_material(scene, its.mat_id, its.uv, self.families)
+        mat = resolve_material(scene, its.mat_id, its.uv, self.families,
+                               lod_extent=tex_lod)
         frame = perturb_shading_frame(
             scene, mat, Frame.from_normal(its.ns), its.uv)
 

@@ -467,22 +467,29 @@ def _rgbe_decode_py(data: bytes, w: int, h: int) -> np.ndarray:
     return img
 
 
-def read_exr_annotations(path: str) -> dict:
-    """Read header attributes of an EXR (int/float/string only) — the
-    analog of data/scripts/rendertime.py's metadata extraction."""
+def _exr_attributes(path: str):
+    """The header attributes of an EXR: (name, type, payload bytes)."""
     with open(path, "rb") as f:
         data = f.read(1 << 16)
     magic, _version = struct.unpack_from("<ii", data, 0)
     assert magic == _EXR_MAGIC, "not an EXR file"
     pos = 8
-    out = {}
+    out = []
     while data[pos] != 0:
         e = data.index(b"\x00", pos)
         name = data[pos:e].decode(); pos = e + 1
         e = data.index(b"\x00", pos)
         typ = data[pos:e].decode(); pos = e + 1
         (size,) = struct.unpack_from("<i", data, pos); pos += 4
-        payload = data[pos:pos + size]; pos += size
+        out.append((name, typ, data[pos:pos + size])); pos += size
+    return out
+
+
+def read_exr_annotations(path: str) -> dict:
+    """Read header attributes of an EXR (int/float/string only) — the
+    analog of data/scripts/rendertime.py's metadata extraction."""
+    out = {}
+    for name, typ, payload in _exr_attributes(path):
         if typ == "int":
             out[name] = struct.unpack("<i", payload)[0]
         elif typ == "float":
@@ -490,3 +497,16 @@ def read_exr_annotations(path: str) -> dict:
         elif typ == "string":
             out[name] = payload.decode(errors="replace")
     return out
+
+
+def read_exr_channel_names(path: str) -> list:
+    """The channel names of an EXR in their stored (alphabetical) order,
+    which is read_exr's channel order but for R, G, B(, A) and Y."""
+    payload = next(p for name, _, p in _exr_attributes(path)
+                   if name == "channels")
+    names, p = [], 0
+    while payload[p] != 0:
+        e = payload.index(b"\x00", p)
+        names.append(payload[p:e].decode())
+        p = e + 1 + 16
+    return names

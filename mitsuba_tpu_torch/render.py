@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 from .core import rng
-from .device import resolve_device
+from .device import check_scene_device
 from .film.film import Film
 from .integrator.common import DIM_APERTURE, DIM_PIXEL
 from .sampler.sampler import INDEPENDENT, draw_2d
@@ -40,10 +40,7 @@ def render_fn(scene: SceneData, camera, film: Film, integrator, spp: int,
     """Render; returns (developed [H, W, 3] image, traced-ray count as a
     0-d int64 tensor). The sample index keys the RNG, so every (pixel,
     sample) pair draws the JAX package's sample stream."""
-    dev = resolve_device(device)
-    if scene.device.type != dev.type:
-        raise ValueError(f"scene lives on {scene.device}, render asked "
-                         f"for {dev}")
+    check_scene_device(scene, device)
     h, w = film.height, film.width
     px = torch.arange(h * w, dtype=torch.int64, device=scene.device)
     accum = film.new_accumulator(scene.device)

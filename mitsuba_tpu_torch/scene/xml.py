@@ -8,10 +8,13 @@ loader covers:
   * $key parameter substitution (CLI -D equivalent; scenehandler.cpp
     ParameterMap) and <default name value>, <include>, <alias>, and the
     upgrade of 0.3/0.4 documents to the 0.5 vocabulary
-  * <integrator> with its common params (LoadedScene.make_integrator)
-  * <sensor> + <transform name="toWorld"> (lookat/translate/rotate/
-    scale/matrix) + nested <film> (width/height/rfilter/banner/
-    componentFormat/compression) + <sampler type count>
+  * <integrator> with its common params and nested children
+    (LoadedScene.make_integrator)
+  * <sensor type="perspective|thinlens|orthographic|spherical|
+    telecentric|perspective_rdist|radiancemeter|irradiancemeter"> +
+    <transform name="toWorld"> (lookat/translate/rotate/scale/matrix) +
+    nested <film> (width/height/rfilter/banner/componentFormat/
+    compression; a meter's film is 1×1 box) + <sampler type count>
   * <shape type="rectangle|cube|sphere|disk|cylinder|heightfield|obj|
     ply|serialized"> with inline <bsdf> or <ref id>, optional area
     <emitter>
@@ -26,10 +29,9 @@ Where the JAX loader warns and substitutes (an unsupported BSDF becomes
 diffuse, an unknown sensor perspective, a missing texture file gray),
 this loader warns and substitutes the same way, and raises ValueError
 under strict=True. Where the JAX loader builds something the port does
-not have (the other sensors, the hk and irawan BSDFs, the hair shape,
-the sun and sky emitters, the integrators beyond path, volpath,
-volpath_simple, direct and prb), it raises NotImplementedError naming the
-JAX module to port.
+not have (the hk and irawan BSDFs, the hair shape, the sun and sky
+emitters, the integrators of _JAX_INTEGRATORS), it raises
+NotImplementedError naming the JAX module to port.
 """
 from __future__ import annotations
 
@@ -42,19 +44,16 @@ import numpy as np
 
 from ..core import transform as tfm
 from ..film.film import Film
-from ..sensor.sensor import PerspectiveCamera
+from ..sensor.sensor import (IrradianceMeter, OrthographicCamera,
+                             PerspectiveCamera, PerspectiveRDistCamera,
+                             RadianceMeter, SphericalCamera,
+                             TelecentricCamera)
 from . import shapes
 from .builder import (ConstantLight, EnvmapLight, Medium, PointLight,
                       SceneDesc)
 
 # the JAX modules behind what the JAX loader builds and the port lacks
 _JAX_INTEGRATORS = {
-    "ao": "integrator/misc.py (AmbientOcclusion)",
-    "field": "integrator/misc.py (FieldIntegrator)",
-    "info": "integrator/misc.py (FieldIntegrator)",
-    "multichannel": "integrator/multichannel.py",
-    "baseFrameWiWo": "integrator/multichannel.py",
-    "adaptive": "integrator/adaptive.py",
     "volpath_hetero": "integrator/hetero.py (HeteroVolPathTracer)",
     "bdpt": "integrator/bdpt.py", "ptracer": "integrator/ptracer.py",
     "photonmapper": "integrator/photonmap.py",
@@ -64,12 +63,6 @@ _JAX_INTEGRATORS = {
     "dipole": "integrator/dipole.py",
     "singlescatter": "integrator/singlescatter.py",
     "vpl": "integrator/vpl.py",
-}
-_JAX_SENSORS = {
-    "orthographic": "OrthographicCamera", "spherical": "SphericalCamera",
-    "telecentric": "TelecentricCamera",
-    "perspective_rdist": "PerspectiveRDistCamera",
-    "radiancemeter": "RadianceMeter", "irradiancemeter": "IrradianceMeter",
 }
 
 
@@ -96,10 +89,15 @@ class LoadedScene:
         return compile_scene(self.desc, cluster_size, device=device)
 
     def make_integrator(self):
-        """The integrator of integrator_config. The JAX loader's kinds
-        path, volpath, volpath_simple, direct and prb are ported; the
-        others raise NotImplementedError naming the JAX module."""
+        """The integrator of integrator_config, built as the JAX loader
+        builds it (mitsuba_tpu/scene/xml.py:71-142). The kinds path,
+        volpath, volpath_simple, direct, prb, ao, field, info,
+        multichannel, baseFrameWiWo and adaptive are ported; the others
+        raise NotImplementedError naming the JAX module."""
+        from ..integrator.adaptive import AdaptiveSampler
         from ..integrator.direct import DirectIntegrator
+        from ..integrator.misc import AmbientOcclusion, FieldIntegrator
+        from ..integrator.multichannel import MultiChannelIntegrator
         from ..integrator.path import PathTracer
         from ..integrator.prb import PRBPathTracer
         from ..integrator.volpath import VolPathTracer
@@ -107,12 +105,46 @@ class LoadedScene:
         kind = cfg.pop("type", "path")
         if kind in _JAX_INTEGRATORS:
             raise _unported(f"integrator {kind!r}", _JAX_INTEGRATORS[kind])
+        child_cfg = cfg.pop("child", None)
+        children_cfg = cfg.pop("children", None) or []
+        kinds = {"field": FieldIntegrator, "ao": AmbientOcclusion,
+                 "direct": DirectIntegrator, "volpath": VolPathTracer}
+
+        def make(cc):
+            cc = dict(cc)
+            return kinds.get(cc.pop("type", "path"), PathTracer)(**cc)
+
+        if kind == "multichannel":
+            return MultiChannelIntegrator(
+                children=tuple(make(cc) for cc in children_cfg),
+                names=tuple(cc.get("field", cc.get("type", f"ch{i}"))
+                            for i, cc in enumerate(children_cfg)))
+        if kind == "info":
+            # info.cpp's normal and distance maps; every other infoName
+            # (the AAF's filter size among them) gives the shading normal
+            field = {"normal": "shNormal", "distance": "distance"}.get(
+                cfg.pop("infoName", "normal"), "shNormal")
+            return FieldIntegrator(field=field)
+        if kind == "baseFrameWiWo":
+            # the render beside per-pixel wi and wo in the shading frame
+            # (baseFrameWiWo.cpp writes wiMacro.exr and woMacro.exr)
+            return MultiChannelIntegrator(
+                children=(PathTracer(**cfg),
+                          FieldIntegrator(field="wiMacro"),
+                          FieldIntegrator(field="woMacro")),
+                names=("radiance", "wiMacro", "woMacro"))
+        if kind == "adaptive":
+            # a nested child is built as a multichannel child is (the JAX
+            # loader passes its "type" key to PathTracer and fails)
+            child = make(child_cfg) if child_cfg else PathTracer()
+            kw = {k: cfg[k] for k in ("max_error", "p_value") if k in cfg}
+            return AdaptiveSampler(child=child, **kw)
+        for k in ("max_error", "p_value", "p_large", "clamping"):
+            cfg.pop(k, None)
         cls = {"path": PathTracer, "volpath": VolPathTracer,
                "volpath_simple": VolPathTracer,
-               "direct": DirectIntegrator, "prb": PRBPathTracer}[kind]
-        for k in ("child", "children", "max_error", "p_value", "p_large",
-                  "clamping"):
-            cfg.pop(k, None)
+               "direct": DirectIntegrator, "prb": PRBPathTracer,
+               "ao": AmbientOcclusion, "field": FieldIntegrator}[kind]
         return cls(**cfg)
 
 
@@ -581,9 +613,32 @@ def load_xml(path: str, parameters: dict | None = None,
                     to_world=to_world,
                     aperture_radius=float(p.get("apertureRadius", 0.0)),
                     focus_distance=float(p.get("focusDistance", 1.0)))
-            elif stype in _JAX_SENSORS:
-                raise _unported(f"sensor {stype!r}",
-                                f"sensor/sensor.py ({_JAX_SENSORS[stype]})")
+            elif stype == "orthographic":
+                camera = OrthographicCamera(width=w, height=h,
+                                            to_world=to_world)
+            elif stype == "spherical":
+                camera = SphericalCamera(width=w, height=h,
+                                         to_world=to_world)
+            elif stype == "telecentric":
+                camera = TelecentricCamera(
+                    width=w, height=h, to_world=to_world,
+                    aperture_radius=float(p.get("apertureRadius", 0.0)),
+                    focus_distance=float(p.get("focusDistance", 1.0)))
+            elif stype == "perspective_rdist":
+                kc = p.get("kc", [0.0, 0.0])
+                if isinstance(kc, str):
+                    kc = [float(x) for x in kc.replace(",", " ").split()]
+                elif isinstance(kc, (int, float)):
+                    kc = [float(kc), 0.0]
+                camera = PerspectiveRDistCamera(
+                    width=w, height=h, fov_x=float(p.get("fov", 39.0)),
+                    to_world=to_world, kc0=float(kc[0]),
+                    kc1=float(kc[1]) if len(kc) > 1 else 0.0)
+            elif stype in ("radiancemeter", "irradiancemeter"):
+                meter = RadianceMeter if stype == "radiancemeter" \
+                    else IrradianceMeter
+                camera = meter(to_world=to_world)
+                film = Film(width=1, height=1, filter_name="box")
             else:
                 warn_or_raise(f"unsupported sensor {stype} → perspective")
                 camera = PerspectiveCamera(width=w, height=h,

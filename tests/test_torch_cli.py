@@ -160,3 +160,79 @@ def test_cuda_default_without_card(small, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main([small, "-s", "1", "-q"])
+
+
+_PATH_LINE = '<integrator type="path"><integer name="maxDepth" value="4"/>' \
+    '</integrator>'
+_ADAPTIVE = ('<integrator type="adaptive"><float name="maxError" '
+             'value="0.1"/><integrator type="path"><integer name="maxDepth" '
+             'value="3"/></integrator></integrator>')
+_MULTI = ('<integrator type="multichannel"><integrator type="path">'
+          '<integer name="maxDepth" value="3"/></integrator>'
+          '<integrator type="field"><string name="field" value="distance"/>'
+          '</integrator></integrator>')
+
+
+def _small_with(tmp_path, name, integrator):
+    assert _PATH_LINE in _SMALL
+    p = tmp_path / f"{name}.xml"
+    p.write_text(_SMALL.replace(_PATH_LINE, integrator))
+    return str(p)
+
+
+def test_adaptive_renders_through_render_full(tmp_path, monkeypatch):
+    """An adaptive scene renders through AdaptiveSampler.render_full (two
+    batches of 16 at -s 32), on the eager route, to the image that
+    render_full gives the loaded scene, and the EXR reads back as it."""
+    from mitsuba_tpu_torch.integrator.adaptive import AdaptiveSampler
+    from mitsuba_tpu_torch.scene.xml import load_xml
+    path = _small_with(tmp_path, "ad", _ADAPTIVE)
+    calls = []
+    full = AdaptiveSampler.render_full
+    monkeypatch.setattr(AdaptiveSampler, "render_full",
+                        lambda self, *a, **k: calls.append(a[3])
+                        or full(self, *a, **k))
+    out = str(tmp_path / "ad.exr")
+    (res,) = cli.run([path, "-o", out, "-s", "32", "--device", "cpu", "-q"])
+    assert calls == [32]
+    assert (res.route, res.refused) == ("eager", "integrator AdaptiveSampler")
+    loaded = load_xml(path)
+    want = loaded.make_integrator().render_full(
+        loaded.compile(device="cpu"), loaded.camera, loaded.film, 32, 0,
+        device="cpu")
+    assert np.array_equal(res.image, want.numpy())
+    assert np.array_equal(timage.read_exr(out), res.image)
+
+
+def test_multichannel_and_adaptive_through_the_command(tmp_path):
+    """`python -m mitsuba_tpu_torch ad.xml mc.xml --device cpu -s 4`: the
+    multichannel scene's EXR has its named channel groups (path.*,
+    distance.*), each equal to MultiChannelIntegrator.render of the loaded
+    scene, and the adaptive scene's EXR (one batch of 16) is a finite RGB
+    image."""
+    from mitsuba_tpu_torch.scene.xml import load_xml
+    ad = _small_with(tmp_path, "ad", _ADAPTIVE)
+    mc = _small_with(tmp_path, "mc", _MULTI)
+    # two intra-op threads, as this module's own torch has: the suite's
+    # workers share the machine's cores
+    proc = subprocess.run(
+        [sys.executable, "-m", "mitsuba_tpu_torch", ad, mc, "--device",
+         "cpu", "-s", "4", "-q"], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, env={**os.environ, "OMP_NUM_THREADS": "2"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    loaded = load_xml(mc)
+    integ = loaded.make_integrator()
+    names = integ.channel_names()
+    assert names == [f"{g}.{c}" for g in ("path", "distance")
+                     for c in "RGB"]
+    out = mc.replace(".xml", ".exr")
+    stored = timage.read_exr_channel_names(out)
+    assert stored == sorted(names)
+    want = integ.render(loaded.compile(device="cpu"), loaded.camera,
+                        loaded.film, 4, 0, device="cpu").numpy()
+    back = timage.read_exr(out)
+    assert back.shape == (12, 16, 6)
+    assert np.array_equal(back, want[..., [names.index(c) for c in stored]])
+    img = timage.read_exr(ad.replace(".xml", ".exr"))
+    assert img.shape == (12, 16, 3) and np.isfinite(img).all()
+    assert img.mean() > 0
