@@ -220,7 +220,23 @@ Phases, each of which must pass or the script exits non-zero:
      integrator (ao, field, info, multichannel, baseFrameWiWo, adaptive),
      each through cli.run on the eager route with its trace launches and
      its EXR read back bit for bit (the multichannel ones by channel
-     name).
+     name);
+ 29. (light_phase) the integrators whose subpaths start on the emitters,
+     on the Cornell box at 256², 8 bounces, each class's defaults: (a)
+     ParticleTracer.render_stats with 2^20 particles (7 closest-hit and 8
+     any-hit launches, rays/s) against PathTracer at 16 spp (the means
+     within 8%, the pixel means correlated above 0.8); (b) BDPT at 4
+     spp, (c) VPLIntegrator (the VPL count and the shadow rays a launch)
+     and (d) LightcutsIntegrator at 1 spp, (e) PhotonMapper at 4 spp and
+     render_progressive at 4 passes × 1 spp, each through render_fn with
+     its launches counted and required; (f) for each of them the trace
+     kernel against accel/dense.py bit for bit on 65,536 lanes of its
+     second closest-hit and second any-hit call's rays, both modes,
+     timed beside the bound; (g) each on the card against CPU tensors at
+     32² with small settings (the image rule; the light tracer also
+     pixel by pixel; the ray counts within 1e-4); (h) scenes/cornell.xml
+     under bdpt, ptracer, vpl, photonmapper, ppm and sppm through
+     cli.run, each EXR read back bit for bit.
 
 The last two lines are the card's name and power limit, as nvidia-smi
 reports them, and {"ok": true, "device": {...}}; the line before them lists
@@ -239,8 +255,10 @@ detached forward's launches, CUDA-event times and peak memory, under
 "dist" (the trace kernel and mega_persistent) phase 25's launches by
 rank, under "compaction" (the trace kernel) phase 26's launches,
 rays/s by setting and live lanes by bounce, under "cli" (the trace
-kernel and mega_persistent) phase 27's launches by scene, and under "lod"
-(the trace and shade kernels) phase 28's launches by run; phase 16
+kernel and mega_persistent) phase 27's launches by scene, under "lod"
+(the trace and shade kernels) phase 28's launches by run, and under
+"light_subpaths" (the trace kernel) phase 29's launches by run and its
+times on each caller's wavefront; phase 16
 prints
 {"walk": ...}, its times by variant. Exits non-zero
 without a CUDA device, and without the package beside it.
@@ -527,6 +545,27 @@ LOD_CLI_INTEGRATORS = {
                                  '<integer name="maxDepth" value="4"/>'),
     "adaptive": _KID.format("adaptive", _KID.format(
         "path", '<integer name="maxDepth" value="4"/>'))}
+# phase 29: the integrators whose subpaths start on the emitters, on the
+# Cornell box at CORNELL_RES², MAX_DEPTH and each class's defaults
+LIGHT_PARTICLES = 1 << 20   # (a) ParticleTracer.render
+LIGHT_PATH_SPP = 16         # (a) the PathTracer image it is held to
+LIGHT_BDPT_SPP = 4          # (b)
+LIGHT_VPL_SPP = 1           # (c), (d)
+LIGHT_PM_SPP = 4            # (e) PhotonMapper through render_fn
+LIGHT_PPM = (4, 1)          # (e) render_progressive: passes, spp a pass
+LIGHT_WAVE = 1 << 16        # (f) lanes of each caller's wavefront compared
+LIGHT_PICK = 1              # (f) the caller's trace call compared (0-based)
+LIGHT_CPU_RES = 32          # (g) card against CPU tensors, small settings
+LIGHT_CPU_DEPTH = 4
+LIGHT_CPU_PARTICLES = 1 << 14
+LIGHT_CPU_SPP = 2
+LIGHT_CPU_PATHS = 32        # VPL paths
+LIGHT_CPU_PHOTONS = 4096
+LIGHT_CPU_TOL = 1e-4        # (g) ptracer: |Δpixel| <= LIGHT_CPU_TOL · max,
+LIGHT_CPU_SHARE = 0.99      # on at least this share of the pixels
+LIGHT_CLI_INTEGRATORS = {   # (h) cornell.xml under each, LOD_CLI_SPP
+    kind: _KID.format(kind, '<integer name="maxDepth" value="4"/>')
+    for kind in ("bdpt", "ptracer", "vpl", "photonmapper", "ppm", "sppm")}
 
 
 @contextlib.contextmanager
@@ -4072,23 +4111,24 @@ def lod_desc(builder, tf, shapes, texture):
     return d
 
 
-def cli_variants(root, tmp):
+def cli_variants(root, tmp, sensors=LOD_CLI_SENSORS,
+                 integrators=LOD_CLI_INTEGRATORS):
     """scenes/cornell.xml written to `tmp` once for each sensor of
-    LOD_CLI_SENSORS (a meter moved into the box, METER_LOOKAT) and each
-    integrator of LOD_CLI_INTEGRATORS (the file itself is not touched):
-    {name: (path, -s)}."""
+    `sensors` (a meter moved into the box, METER_LOOKAT) and each
+    integrator of `integrators` (the file itself is not touched): {name:
+    (path, -s)}."""
     with open(os.path.join(root, "scenes", "cornell.xml")) as f:
         text = f.read()
     check(all(line in text for line in (CORNELL_PATH, CORNELL_SENSOR,
                                         CORNELL_LOOKAT)),
           "scenes/cornell.xml no longer holds the lines phase 28 swaps")
     out = {}
-    for kind, props in LOD_CLI_SENSORS.items():
+    for kind, props in sensors.items():
         doc = text.replace(CORNELL_SENSOR, f'<sensor type="{kind}">{props}')
         # a meter looks at the back wall from inside the box
         out[kind] = doc.replace(CORNELL_LOOKAT, METER_LOOKAT) \
             if kind.endswith("meter") else doc
-    for kind, xml in LOD_CLI_INTEGRATORS.items():
+    for kind, xml in integrators.items():
         out[kind] = text.replace(CORNELL_PATH, xml)
     paths = {}
     for name, doc in out.items():
@@ -4337,6 +4377,262 @@ def lod_phase(card, kernels):
         if entry["name"] in names:
             entry["lod"] = out[entry["name"]]
     print(f"[lod] phase 28: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+
+@contextlib.contextmanager
+def recorded_traces(pick=LIGHT_PICK):
+    """Inside the block every call of trace.intersect and trace.occluded
+    goes through; call number `pick` of each (or the last, where there
+    are fewer) is kept as (scene, o, d, mint, maxt, live) in
+    got["closest"] and got["any"]."""
+    from mitsuba_tpu_torch.accel import trace
+    got, calls = {}, {"closest": 0, "any": 0}
+    saved = trace.intersect, trace.occluded
+
+    def keep(kind, args):
+        if calls[kind] <= pick:
+            got[kind] = args
+        calls[kind] += 1
+
+    def intersect(scene, o, d, mint, maxt, live=None):
+        keep("closest", (scene, o, d, mint, maxt, live))
+        return saved[0](scene, o, d, mint, maxt, live)
+
+    def occluded(scene, o, d, mint, maxt, live=None):
+        keep("any", (scene, o, d, mint, maxt, live))
+        return saved[1](scene, o, d, mint, maxt, live)
+
+    trace.intersect, trace.occluded = intersect, occluded
+    try:
+        yield got
+    finally:
+        trace.intersect, trace.occluded = saved
+
+
+def light_phase(card, kernels, scene, cam):
+    """Phase 29: the integrators whose subpaths start on the emitters, on
+    the Cornell box at CORNELL_RES², MAX_DEPTH, each class's defaults:
+    (a) ParticleTracer.render_stats with LIGHT_PARTICLES particles
+    (launches, rays/s) against PathTracer at LIGHT_PATH_SPP (the means
+    within 8%, the pixel means correlated above 0.8); (b) BDPT at
+    LIGHT_BDPT_SPP, (c) VPLIntegrator and (d) LightcutsIntegrator at
+    LIGHT_VPL_SPP, (e) PhotonMapper at LIGHT_PM_SPP and render_progressive
+    at LIGHT_PPM, each through render_fn with its launches counted; (f)
+    for each of them the trace kernel against accel/dense.py bit for bit
+    on LIGHT_WAVE lanes of one of its own wavefronts (closest and any
+    hit), timed beside its bound; (g) each on the card against CPU
+    tensors at LIGHT_CPU_RES² with small settings (the image rule; the
+    light tracer also pixel by pixel; the ray counts); (h)
+    scenes/cornell.xml under bdpt, ptracer, vpl, photonmapper, ppm and
+    sppm through cli.run, every EXR read back. Adds a "light_subpaths"
+    object (launches by run, the wavefronts' times) to the trace
+    kernel's entries of `kernels`."""
+    import tempfile
+
+    from mitsuba_tpu_torch import cli
+    from mitsuba_tpu_torch.accel import megakernel as mk
+    from mitsuba_tpu_torch.accel import trace
+    from mitsuba_tpu_torch.film.film import Film
+    from mitsuba_tpu_torch.integrator.bdpt import BDPT
+    from mitsuba_tpu_torch.integrator.lightcuts import LightcutsIntegrator
+    from mitsuba_tpu_torch.integrator.path import PathTracer
+    from mitsuba_tpu_torch.integrator.photonmap import (PhotonMapper,
+                                                        render_progressive)
+    from mitsuba_tpu_torch.integrator.ptracer import ParticleTracer
+    from mitsuba_tpu_torch.integrator.vpl import (CHUNK_LANES,
+                                                  VPLIntegrator)
+    from mitsuba_tpu_torch.io.image import read_exr
+    from mitsuba_tpu_torch.render import render_fn
+    from mitsuba_tpu_torch.scene.builder import compile_scene
+    from mitsuba_tpu_torch.scene.presets import cornell_box, cornell_camera
+
+    t_start = time.perf_counter()
+    names = ("trace_closest", "trace_any")
+    out = {n: {"launches": {}, "wavefronts": {}} for n in names}
+    res, depth = CORNELL_RES, MAX_DEPTH
+    film = Film(res, res, "box")
+    errs = {n: 0.0 for n in names}
+
+    def counted(label, run, want):
+        """run() with the trace launches counted from 0 (its wall seconds
+        and result), each wavefront of its kept; the launches must be
+        `want`."""
+        torch.cuda.synchronize()
+        trace.reset_launches()
+        with recorded_traces() as got:
+            t0 = time.perf_counter()
+            result = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {k: trace.LAUNCHES[k] for k in names}
+        for k in names:
+            out[k]["launches"][label] = launches[k]
+        check(launches == want, f"{label}: launches {launches}, want {want}")
+        for kind, key, any_hit in (("closest", "trace_closest", False),
+                                   ("any", "trace_any", True)):
+            sc, o, d, mint, maxt, live = got[kind]
+            w = slice(0, LIGHT_WAVE)
+            rays = (o[w], d[w], mint[w], maxt[w],
+                    None if live is None else live[w])
+            compare(f"light {label} {kind} wavefront", sc, *rays, errs)
+            out[key]["wavefronts"][label] = measure(
+                f"{key}, {label}'s wavefront", any_hit, sc, rays, 1, card)
+        return wall, result
+
+    def report(label, what, wall, img, n_rays):
+        print(f"[light] {label} {what}: {wall:.3f} s, {n_rays} rays, "
+              f"{n_rays / wall:.6g} rays/s, mean {img.mean().item():.5f}, "
+              f"launches {out['trace_closest']['launches'][label]} closest"
+              f", {out['trace_any']['launches'][label]} any ({card})",
+              flush=True)
+        check(bool(torch.isfinite(img).all()) and img.mean().item() > 0,
+              f"{label}: image not finite or all zero")
+
+    # ---- 29 (a). the light tracer against the path tracer ---------------
+    lt = ParticleTracer(max_depth=depth)
+    lt.render(scene, cam, 1 << 14, 1, device=DEV)              # (warm-up)
+    wall, (img_lt, n_lt) = counted(
+        "ptracer", lambda: lt.render_stats(scene, cam, LIGHT_PARTICLES, 0,
+                                           device=DEV),
+        {"trace_closest": depth - 1, "trace_any": depth})
+    report("ptracer", f"{LIGHT_PARTICLES} particles", wall, img_lt,
+           int(n_lt))
+    img_pt = render_fn(scene, cam, film, PathTracer(max_depth=depth),
+                       LIGHT_PATH_SPP, 0, device=DEV)[0]
+    m_lt, m_pt = img_lt.mean().item(), img_pt.mean().item()
+    corr = np.corrcoef(img_lt.mean(-1).flatten().cpu().numpy(),
+                       img_pt.mean(-1).flatten().cpu().numpy())[0, 1]
+    print(f"[light] ptracer mean {m_lt:.5f} vs PathTracer {LIGHT_PATH_SPP} "
+          f"spp {m_pt:.5f} (rel {abs(m_lt - m_pt) / m_pt:.4f}), pixel-mean "
+          f"correlation {corr:.4f}", flush=True)
+    check(abs(m_lt - m_pt) / m_pt < 0.08, "ptracer mean off by 8% or more")
+    check(corr > 0.8, f"ptracer pixel means correlate {corr}")
+
+    # ---- 29 (b)-(e). BDPT, VPL, lightcuts, photon mapping ---------------
+    n_vpl = VPLIntegrator().n_paths * (1 + depth - 2)
+    chunk = CHUNK_LANES // (res * res)
+    walk = PhotonMapper().photon_depth
+    runs = (
+        ("bdpt", BDPT(max_depth=depth), LIGHT_BDPT_SPP,
+         {"trace_closest": LIGHT_BDPT_SPP * (2 * depth - 1),
+          "trace_any": LIGHT_BDPT_SPP * (depth - 1) * depth // 2}),
+        ("vpl", VPLIntegrator(max_depth=depth), LIGHT_VPL_SPP,
+         {"trace_closest": LIGHT_VPL_SPP * (depth - 1),
+          "trace_any": LIGHT_VPL_SPP * -(-n_vpl // chunk)}),
+        ("lightcuts", LightcutsIntegrator(max_depth=depth), LIGHT_VPL_SPP,
+         {"trace_closest": LIGHT_VPL_SPP * (depth - 1),
+          "trace_any": LIGHT_VPL_SPP
+          * -(-LightcutsIntegrator().cut_size // chunk)}),
+        # the photon walk's depth, then the eye pass: Cornell is diffuse,
+        # so every chain ends at its first hit (one closest, one NEE ray)
+        ("photonmapper", PhotonMapper(max_depth=depth), LIGHT_PM_SPP,
+         {"trace_closest": LIGHT_PM_SPP * (walk + 1),
+          "trace_any": LIGHT_PM_SPP}))
+    for label, integ, spp, want in runs:
+        render_fn(scene, cornell_camera(32, 32), Film(32, 32), integ, 1, 0,
+                  device=DEV)                               # (warm-up)
+        wall, (img, n) = counted(label, lambda: render_fn(
+            scene, cam, film, integ, spp, 0, device=DEV), want)
+        report(label, f"{spp} spp", wall, img, int(n))
+        if label == "vpl":
+            print(f"[light] vpl: {n_vpl} VPLs, {chunk * res * res} shadow "
+                  f"rays a launch ({chunk} VPLs)", flush=True)
+        if label == "bdpt":
+            rel = abs(img.mean().item() - m_pt) / m_pt
+            print(f"[light] bdpt mean vs PathTracer: rel {rel:.4f}",
+                  flush=True)
+            check(rel < 0.05, f"bdpt mean off by {rel}")
+    passes, pspp = LIGHT_PPM
+    pm = PhotonMapper(max_depth=depth)
+    wall, img = counted("render_progressive", lambda: render_progressive(
+        scene, cam, film, pm, passes, pspp, 0, device=DEV),
+        {"trace_closest": passes * pspp * (walk + 1),
+         "trace_any": passes * pspp})
+    report("render_progressive", f"{passes} x {pspp} spp", wall, img,
+           passes * pspp * (2 * res * res + pm.n_photons))
+
+    # ---- 29 (g). the card against CPU tensors ----------------------------
+    r = LIGHT_CPU_RES
+    small_cam, small = cornell_camera(r, r), Film(r, r, "box")
+    cpu = compile_scene(cornell_box(), device="cpu")
+    lt = ParticleTracer(max_depth=LIGHT_CPU_DEPTH)
+    k_img, k_n = lt.render_stats(scene, small_cam, LIGHT_CPU_PARTICLES, 0,
+                                 device=DEV)
+    c_img, c_n = lt.render_stats(cpu, small_cam, LIGHT_CPU_PARTICLES, 0,
+                                 device="cpu")
+    k_img = k_img.cpu()
+    image_rule(k_img, c_img, "light cpu ptracer")
+    dev = (k_img - c_img).abs().amax(-1) / c_img.max()
+    share = (dev <= LIGHT_CPU_TOL).float().mean().item()
+    print(f"[light cpu] ptracer {r}², {LIGHT_CPU_PARTICLES} particles: "
+          f"max |Δ| / max {dev.max().item():.3g}, share of pixels within "
+          f"{LIGHT_CPU_TOL} of the max {share:.5f}; rays {int(k_n)} vs "
+          f"{int(c_n)}", flush=True)
+    check(share >= LIGHT_CPU_SHARE, f"ptracer card vs CPU: {share}")
+    check(abs(int(k_n) - int(c_n)) <= 1e-4 * int(c_n), "ptracer rays")
+    d = LIGHT_CPU_DEPTH
+    small_runs = {
+        "bdpt": BDPT(max_depth=d),
+        "vpl": VPLIntegrator(max_depth=d, n_paths=LIGHT_CPU_PATHS),
+        "lightcuts": LightcutsIntegrator(max_depth=d,
+                                         n_paths=LIGHT_CPU_PATHS),
+        "photonmapper": PhotonMapper(max_depth=d,
+                                     n_photons=LIGHT_CPU_PHOTONS)}
+    for label, integ in small_runs.items():
+        k_img, k_n = render_fn(scene, small_cam, small, integ, LIGHT_CPU_SPP,
+                               0, device=DEV)
+        c_img, c_n = render_fn(cpu, small_cam, small, integ, LIGHT_CPU_SPP,
+                               0, device="cpu")
+        image_rule(k_img.cpu(), c_img, f"light cpu {label}")
+        print(f"[light cpu] {label} {r}², {LIGHT_CPU_SPP} spp: rays "
+              f"{int(k_n)} vs {int(c_n)} (equal {int(k_n) == int(c_n)})",
+              flush=True)
+        check(abs(int(k_n) - int(c_n)) <= 1e-4 * int(c_n),
+              f"{label} rays {int(k_n)} vs {int(c_n)}")
+    pm = small_runs["photonmapper"]
+    image_rule(render_progressive(scene, small_cam, small, pm, 2, 1, 0,
+                                  device=DEV).cpu(),
+               render_progressive(cpu, small_cam, small, pm, 2, 1, 0,
+                                  device="cpu"),
+               "light cpu render_progressive")
+
+    # ---- 29 (h). cornell.xml under each kind through the CLI ------------
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (path, spp) in cli_variants(
+                root, tmp, {}, LIGHT_CLI_INTEGRATORS).items():
+            exr = path.replace(".xml", ".exr")
+            trace.reset_launches()
+            mk.reset_launches()
+            t0 = time.perf_counter()
+            (res_c,) = cli.run([path, "-o", exr, "-q", "-s", str(spp)])
+            wall = time.perf_counter() - t0
+            launches = {k: trace.LAUNCHES[k] for k in names}
+            for k in names:
+                out[k]["launches"][f"cli {name}"] = launches[k]
+            img = res_c.image
+            print(f"[light cli] cornell {name}: {img.shape[1]}x"
+                  f"{img.shape[0]}, {res_c.spp} spp, route {res_c.route} "
+                  f"({res_c.refused}), launches {launches}, render "
+                  f"{res_c.render_s:.3f} s, wall {wall:.3f} s, "
+                  f"{res_c.n_rays} rays, mean {img.mean():.5f} ({card})",
+                  flush=True)
+            check(res_c.route == "eager" and res_c.device == "cuda"
+                  and mk.LAUNCHES["mega_persistent"] == 0,
+                  f"{name}: route {res_c.route} on {res_c.device}")
+            check(launches["trace_closest"] > 0 and launches["trace_any"] > 0,
+                  f"{name}: a trace kernel was not launched")
+            check(np.isfinite(img).all() and np.abs(img).sum() > 0,
+                  f"{name}: image not finite or all zero")
+            check(np.array_equal(read_exr(exr), img),
+                  f"{name}: the EXR does not read back as the image")
+    for k in names:
+        out[k]["max_abs_err"] = errs[k]
+    for entry in kernels:
+        if entry["name"] in names:
+            entry["light_subpaths"] = out[entry["name"]]
+    print(f"[light] phase 29: {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
 
@@ -4742,6 +5038,9 @@ def main():
     # integrators from scene files -----------------------------------------
     lod_phase(card, kernels)
     clock("phase 28")
+    # ---- 29. the integrators whose subpaths start on the emitters -------
+    light_phase(card, kernels, scene, cam)
+    clock("phase 29")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -14,7 +14,12 @@ with the independent sampler and no hide_emitters, on the card, on a
 scene, camera and film that MegaPathTracer / MegaVolPathTracer.supports
 admits, renders through the persistent megakernel (integrator/mega.py
 render_persistent); everything else renders through render.py
-render_fn, with the trace kernel on the card. An integrator with its
+render_fn, with the trace kernel on the card: BDPT, VPLIntegrator and
+PhotonMapper (the bdpt, vpl, photonmapper, ppm and sppm kinds) through
+their li_stats a pass, as the JAX CLI renders them through render(), and
+a ptracer scene path-traced, since ParticleTracer's li_stats is
+PathTracer's (the JAX CLI path-traces it too; the light tracer is
+ParticleTracer.render). An integrator with its
 own outer loop (render_full: the adaptive sampler) renders through it in
 one call, as the JAX CLI does (mitsuba_tpu/cli.py:98-110); a
 MultiChannelIntegrator renders through its own render, pass by pass, and

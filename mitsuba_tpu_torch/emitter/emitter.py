@@ -17,8 +17,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.math import dot, safe_div
-from ..core.warp import (INV_FOUR_PI, square_to_uniform_sphere,
+from ..core.math import Frame, dot, safe_div
+from ..core.warp import (INV_FOUR_PI, square_to_cosine_hemisphere,
+                         square_to_uniform_sphere,
                          square_to_uniform_triangle)
 from ..scene import scene as S
 from ..scene.scene import SceneData
@@ -135,6 +136,51 @@ def sample_direct(scene: SceneData, ref_p, u_sel, u2) -> DirectSample:
         d=d, dist=dist, pdf=torch.where(is_delta, em_pmf_val, pdf_total),
         value=value, is_delta=is_delta,
         n=torch.where(is_area[:, None], n_l, -d), em_id=em_id)
+
+
+class EmitterRay(NamedTuple):
+    """The start of a subpath on an area emitter. All [N, ...]."""
+    em_id: torch.Tensor      # [N] int64 picked emitter
+    pmf: torch.Tensor        # [N] its pick probability
+    area: torch.Tensor       # [N] its total surface area
+    le: torch.Tensor         # [N, 3] its radiance
+    is_area: torch.Tensor    # [N] bool: an area emitter (the others start
+                             # no subpath)
+    p: torch.Tensor          # [N, 3] the point on it
+    n: torch.Tensor          # [N, 3] its normal there
+    d: torch.Tensor          # [N, 3] the cosine-weighted emission direction
+
+
+def sample_emitter_ray(scene: SceneData, u_sel, u_pos, u_dir) -> EmitterRay:
+    """Start a light subpath: pick an emitter with u_sel [N] (sample
+    reuse), its triangle ∝ area from the reused uniform through the
+    globalized CDF and a uniform point on it with u_pos [N, 2], then a
+    cosine-weighted direction about its normal with u_dir [N, 2] (ref:
+    emitter/area.cpp sampleRay). The light tracer, BDPT, the VPL
+    generator and the photon tracer start here; each weights the start
+    by its own formula."""
+    n = u_sel.shape[0]
+    if scene.n_emitters == 0 or scene.em_tris.shape[0] == 0:
+        z3 = torch.zeros((n, 3), device=u_sel.device)
+        up = torch.cat([z3[:, :2], torch.ones_like(z3[:, :1])], dim=-1)
+        z = z3[:, 0]
+        return EmitterRay(torch.zeros(n, dtype=torch.int64,
+                                      device=u_sel.device), z, z, z3,
+                          torch.zeros(n, dtype=torch.bool,
+                                      device=u_sel.device), z3, up, up)
+    em_id, u_re, pmf = scene.em_pmf.sample_reuse(u_sel)
+    key = em_id.to(torch.float32) + torch.clamp(u_re, 0.0, 1.0 - 1e-7)
+    hi = torch.searchsorted(scene.em_tri_cdfg, key, right=True)
+    row = scene.em_tri_data[hi.clamp(0, scene.em_tris.shape[0] - 1)]
+    bar = square_to_uniform_triangle(u_pos)
+    p = (row[:, 0:3] + bar[:, 0:1] * row[:, 3:6]
+         + bar[:, 1:2] * row[:, 6:9])
+    n_l = row[:, 9:12]
+    d = Frame.to_world(Frame.from_normal(n_l),
+                       square_to_cosine_hemisphere(u_dir))
+    return EmitterRay(em_id, pmf, scene.em_area[em_id],
+                      scene.em_radiance[em_id],
+                      scene.em_type[em_id] == S.EM_AREA, p, n_l, d)
 
 
 def pdf_direct_area(scene: SceneData, em_id, d, dist, cos_l):

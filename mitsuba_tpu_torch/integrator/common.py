@@ -48,3 +48,8 @@ def offset_ray_origin(p, ng, d):
 def ray_mint(p):
     """Minimum hit distance for secondary rays, scaled to scene magnitude."""
     return 1e-4 * (1.0 + torch.amax(torch.abs(p), dim=-1))
+
+
+def tile_lanes(x, k: int):
+    """x [N, ...] repeated k times along dim 0: lane j·N + i is x[i]."""
+    return x.repeat(k, *([1] * (x.dim() - 1)))

@@ -55,14 +55,10 @@ from .builder import (ConstantLight, EnvmapLight, Medium, PointLight,
 # the JAX modules behind what the JAX loader builds and the port lacks
 _JAX_INTEGRATORS = {
     "volpath_hetero": "integrator/hetero.py (HeteroVolPathTracer)",
-    "bdpt": "integrator/bdpt.py", "ptracer": "integrator/ptracer.py",
-    "photonmapper": "integrator/photonmap.py",
-    "ppm": "integrator/photonmap.py", "sppm": "integrator/photonmap.py",
     "pssmlt": "integrator/pssmlt.py", "mlt": "integrator/mlt.py",
     "erpt": "integrator/erpt.py", "irrcache": "integrator/irrcache.py",
     "dipole": "integrator/dipole.py",
     "singlescatter": "integrator/singlescatter.py",
-    "vpl": "integrator/vpl.py",
 }
 
 
@@ -92,15 +88,21 @@ class LoadedScene:
         """The integrator of integrator_config, built as the JAX loader
         builds it (mitsuba_tpu/scene/xml.py:71-142). The kinds path,
         volpath, volpath_simple, direct, prb, ao, field, info,
-        multichannel, baseFrameWiWo and adaptive are ported; the others
-        raise NotImplementedError naming the JAX module."""
+        multichannel, baseFrameWiWo, adaptive, bdpt, ptracer, vpl,
+        photonmapper, ppm and sppm (the last three PhotonMapper) are
+        ported; the others raise NotImplementedError naming the JAX
+        module."""
         from ..integrator.adaptive import AdaptiveSampler
+        from ..integrator.bdpt import BDPT
         from ..integrator.direct import DirectIntegrator
         from ..integrator.misc import AmbientOcclusion, FieldIntegrator
         from ..integrator.multichannel import MultiChannelIntegrator
         from ..integrator.path import PathTracer
+        from ..integrator.photonmap import PhotonMapper
         from ..integrator.prb import PRBPathTracer
+        from ..integrator.ptracer import ParticleTracer
         from ..integrator.volpath import VolPathTracer
+        from ..integrator.vpl import VPLIntegrator
         cfg = dict(self.integrator_config)
         kind = cfg.pop("type", "path")
         if kind in _JAX_INTEGRATORS:
@@ -139,12 +141,17 @@ class LoadedScene:
             child = make(child_cfg) if child_cfg else PathTracer()
             kw = {k: cfg[k] for k in ("max_error", "p_value") if k in cfg}
             return AdaptiveSampler(child=child, **kw)
-        for k in ("max_error", "p_value", "p_large", "clamping"):
+        for k in ("max_error", "p_value", "p_large"):
             cfg.pop(k, None)
+        if kind != "vpl":
+            cfg.pop("clamping", None)
         cls = {"path": PathTracer, "volpath": VolPathTracer,
                "volpath_simple": VolPathTracer,
                "direct": DirectIntegrator, "prb": PRBPathTracer,
-               "ao": AmbientOcclusion, "field": FieldIntegrator}[kind]
+               "ao": AmbientOcclusion, "field": FieldIntegrator,
+               "bdpt": BDPT, "ptracer": ParticleTracer,
+               "photonmapper": PhotonMapper, "ppm": PhotonMapper,
+               "sppm": PhotonMapper, "vpl": VPLIntegrator}[kind]
         return cls(**cfg)
 
 

@@ -236,3 +236,71 @@ def test_multichannel_and_adaptive_through_the_command(tmp_path):
     img = timage.read_exr(ad.replace(".xml", ".exr"))
     assert img.shape == (12, 16, 3) and np.isfinite(img).all()
     assert img.mean() > 0
+
+
+_CORNELL_PATH = ('<integrator type="path">\n    <integer name="maxDepth" '
+                 'value="4"/>\n  </integrator>')
+
+
+def _cornell_as(tmp_path, kind):
+    """scenes/cornell.xml at 8×8 with the integrator `kind` (the file's
+    maxDepth 4), written to tmp_path."""
+    with open(CORNELL) as f:
+        text = f.read()
+    assert _CORNELL_PATH in text and text.count('value="32"') == 2
+    p = tmp_path / f"cornell_{kind}.xml"
+    p.write_text(text.replace(_CORNELL_PATH, _CORNELL_PATH.replace(
+        '"path"', f'"{kind}"')).replace('value="32"', 'value="8"'))
+    return str(p)
+
+
+def _jax_cli(path, tmp_path, *args):
+    """The JAX command line's image of a scene file (a .npy output)."""
+    from mitsuba_tpu import cli as jcli
+    out = str(tmp_path / (os.path.basename(path) + ".npy"))
+    assert jcli.main([path, "-o", out, "-q", *args]) == 0
+    return np.load(out)
+
+
+def _image_rule(img, ref):
+    """tests/test_render.py:44-48: < 1% of values off by rel > 5e-2, and
+    the means within rel 5e-3."""
+    rel = np.abs(img - ref) / np.maximum(ref, 1e-3)
+    assert (rel > 5e-2).mean() < 1e-2, (rel > 5e-2).mean()
+    assert np.abs(img.mean() - ref.mean()) / ref.mean() < 5e-3
+
+
+@pytest.mark.parametrize("kind,depth", [("bdpt", "3"), ("vpl", "2")])
+def test_light_subpath_kinds_match_jax_cli(tmp_path, kind, depth):
+    """An 8×8 cornell.xml under bdpt (-d 3) and vpl (-d 2: the 256
+    emitter VPLs, as the file's 3,976 triangles make every shadow ray
+    cost 4,096 tests on the CPU) at -s 2 --device cpu: the eager route
+    through render_fn (the JAX command line's route, its render() a
+    pass), the log naming the integrator, and the image within the image
+    rule of the JAX command line's."""
+    path = _cornell_as(tmp_path, kind)
+    args = ["-s", "2", "-d", depth]
+    (res,) = cli.run([path, "-o", str(tmp_path / "o.exr"), *args,
+                      "--device", "cpu", "-q"])
+    name = {"bdpt": "BDPT", "vpl": "VPLIntegrator"}[kind]
+    assert (res.route, res.refused) == ("eager", f"integrator {name}")
+    assert res.n_rays > 0 and res.image.shape == (8, 8, 3)
+    _image_rule(res.image, _jax_cli(path, tmp_path, *args))
+
+
+def test_ptracer_scene_file_is_path_traced(tmp_path):
+    """Both command lines path-trace a ptracer scene file (ROADMAP.md Queue
+    C): the JAX one renders through render() → li, which ParticleTracer
+    inherits, and so does the port's. The port's image equals its own
+    path scene's bit for bit, and the JAX command line's ptracer image
+    agrees with it under the image rule (a light-traced image would not)."""
+    ptracer = _cornell_as(tmp_path, "ptracer")
+    args = ["-s", "2", "-d", "3"]
+    (res,) = cli.run([ptracer, "-o", str(tmp_path / "p.exr"), *args,
+                      "--device", "cpu", "-q"])
+    (path,) = cli.run([_cornell_as(tmp_path, "path"), "-o",
+                       str(tmp_path / "q.exr"), *args, "--device", "cpu",
+                       "-q"])
+    assert res.refused == "integrator ParticleTracer"
+    assert np.array_equal(res.image, path.image)
+    _image_rule(_jax_cli(ptracer, tmp_path, *args), res.image)

@@ -9,8 +9,10 @@ leaf-families scene, the lights-and-composites scene, the fog scenes
 shade kernels under bitmap textures, normal and bump maps and an
 envmap), the ablation probe's seven variants (csrc/ablate.cu),
 mega_bounce at unbounded depth on the Cornell box, the wrappers'
-refusal of inputs that require grad, and the command-line renderer's
-megakernel route on scenes/checker.xml. Every test is marked
+refusal of inputs that require grad, the command-line renderer's
+megakernel route on scenes/checker.xml, and the trace kernel on the
+wavefronts of the light-subpath integrators (ptracer, BDPT, VPL,
+lightcuts, photon mapping). Every test is marked
 `cuda` and skips without a card.
 The file
 imports neither jax nor the JAX package, so it also runs where only the
@@ -983,3 +985,50 @@ def test_cli_megakernel_route_on_card(tmp_path):
     assert sum(ttrace.LAUNCHES.values()) == 0
     assert np.isfinite(res.image).all() and res.n_rays > 0
     assert np.array_equal(read_exr(out), res.image)
+
+
+def _light_runs(scene, cam):
+    """Each caller of the light-subpath integrators at 32² with small
+    settings (phase 29's (g)): {name: run()}."""
+    from mitsuba_tpu_torch.film.film import Film
+    from mitsuba_tpu_torch.integrator.bdpt import BDPT
+    from mitsuba_tpu_torch.integrator.lightcuts import LightcutsIntegrator
+    from mitsuba_tpu_torch.integrator.photonmap import PhotonMapper
+    from mitsuba_tpu_torch.integrator.ptracer import ParticleTracer
+    from mitsuba_tpu_torch.integrator.vpl import VPLIntegrator
+    from mitsuba_tpu_torch.render import render_fn
+    film = Film(32, 32)
+    eye = lambda integ: lambda: render_fn(scene, cam, film, integ, 1, 0,
+                                          device="cuda")
+    return {
+        "ptracer": lambda: ParticleTracer(max_depth=4).render_stats(
+            scene, cam, 1 << 14, 0, device="cuda"),
+        "bdpt": eye(BDPT(max_depth=4)),
+        "vpl": eye(VPLIntegrator(max_depth=4, n_paths=32)),
+        "lightcuts": eye(LightcutsIntegrator(max_depth=4, n_paths=32)),
+        "photonmapper": eye(PhotonMapper(max_depth=4, n_photons=4096))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ptracer", "bdpt", "vpl", "lightcuts",
+                                  "photonmapper"])
+def test_light_subpath_traces_match_plain_on_card(name):
+    """Phase 29's trace checks: on the second closest-hit and the second
+    any-hit call of each light-subpath integrator (the light tracer's
+    walk and camera connections, BDPT's eye walk and connections, the
+    VPL walk and the VPL or cut-node shadow rays, the photon walk and
+    the eye pass's NEE), the trace kernel equals accel/dense.py on every
+    lane, in both modes."""
+    from chip_smoke import recorded_traces
+    dev = _card()
+    scene = _scene(False, dev)
+    with recorded_traces() as got:
+        _light_runs(scene, tpresets.cornell_camera(32, 32))[name]()
+    for kind in ("closest", "any"):
+        sc, o, d, mint, maxt, live = got[kind]
+        ki = ttrace.intersect(sc, o, d, mint, maxt, live)
+        pi = tdense.ray_intersect(sc, o, d, mint, maxt, live)
+        for f in ("valid", "t", "tri_id", "uv"):
+            assert torch.equal(getattr(ki, f), getattr(pi, f)), (kind, f)
+        assert torch.equal(ttrace.occluded(sc, o, d, mint, maxt, live),
+                           tdense.ray_test(sc, o, d, mint, maxt, live)), kind

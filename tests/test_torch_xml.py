@@ -294,9 +294,9 @@ def _doc(body, sensor="perspective", integrator="path"):
 
 
 @pytest.mark.parametrize("what,doc,match", [
-    ("bdpt", _doc("", integrator="bdpt"), "integrator/bdpt.py"),
+    ("pssmlt", _doc("", integrator="pssmlt"), "integrator/pssmlt.py"),
     ("hetero", _doc("", integrator="volpath_hetero"), "integrator/hetero"),
-    ("ptracer", _doc("", integrator="ptracer"), "integrator/ptracer.py"),
+    ("irrcache", _doc("", integrator="irrcache"), "integrator/irrcache.py"),
     ("hair", _doc('<shape type="hair"><string name="filename" '
                   'value="h.txt"/></shape>'), "hair"),
     ("hk", _doc('<shape type="cube"><bsdf type="hk"/></shape>'), "hk"),
@@ -389,6 +389,17 @@ _INTEGRATORS = {
                       '<integer name="maxDepth" value="4"/>'),
     "adaptive": ("adaptive", '<float name="maxError" value="0.1"/>'
                  '<float name="pValue" value="0.01"/>'),
+    # the light-subpath kinds: clamping kept for vpl only, pLarge dropped
+    "bdpt": ("bdpt", '<integer name="maxDepth" value="5"/>'
+             '<integer name="rrDepth" value="3"/>'
+             '<float name="pLarge" value="0.3"/>'),
+    "ptracer": ("ptracer", '<integer name="maxDepth" value="6"/>'),
+    "vpl": ("vpl", '<integer name="maxDepth" value="5"/>'
+            '<float name="clamping" value="0.3"/>'),
+    "photonmapper": ("photonmapper", '<integer name="maxDepth" value="4"/>'
+                     '<float name="clamping" value="0.3"/>'),
+    "ppm": ("ppm", '<boolean name="hideEmitters" value="true"/>'),
+    "sppm": ("sppm", '<integer name="rrDepth" value="7"/>'),
 }
 
 
